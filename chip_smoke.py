@@ -1,0 +1,320 @@
+#!/usr/bin/env python3
+"""Smoke run of ra_tpu_torch on one NVIDIA GPU (built for the H100).
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure raises and exits
+non-zero (there is no CPU path and no fallback to a plain version):
+
+  device     the card, and its name and power limit from nvidia-smi
+  build      nvcc builds every kernel of ra_tpu_torch/ops/csrc for sm_90a
+  kernels    each kernel against its plain torch version on the card at
+             the main path's shape and more, exactly; kernel and plain
+             version timed with CUDA events, per call (host launch
+             included) and back to back in a CUDA graph (device only)
+  parity     a seeded 64-step schedule (failures, elections with ties,
+             recovery, membership, read batches) on a 1,024 x 5 engine,
+             once on cuda and once on cpu: every LaneState leaf and aux
+             key equal after every step, one quorum-kernel launch a step
+  main_path  the full-width engine, 10,000 clusters x 5 members, driven
+             with uniform_step(128): committed cmds/s and ms/step, then
+             exact commit, counter and read_lanes checks
+
+then the kernels summary line, the nvidia-smi line, and last
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+NON_TENSOR_OPS_PER_S = 67e12   # H100 SXM fp32 outside the tensor cores
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, reps: int = 200, warmup: int = 20) -> float:
+    """Median device time of one call of ``fn``, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def graph_ms(fn, reps: int = 200) -> float:
+    """Device time of one call of ``fn`` with no host launch cost between
+    calls: ``reps`` calls captured in one CUDA graph, replayed, timed by
+    CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def quorum_inputs(n: int, p: int, seed: int, device) -> tuple:
+    rng = np.random.default_rng(seed)
+    commit = rng.integers(0, 50, size=(n,)).astype(np.int32)
+    match = rng.integers(0, 100, size=(n, p)).astype(np.int32)
+    voter = rng.random((n, p)) < 0.8
+    voter[:, 0] = True
+    voter[rng.random(n) < 0.05] = False          # lanes with no voters
+    tstart = rng.integers(0, 80, size=(n,)).astype(np.int32)
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in (commit, match, voter, tstart))
+
+
+def phase_kernels(pq, quorum, dev) -> dict:
+    checks = []
+    for n, p in ((10_000, 5), (513, 2), (1024, 7), (4099, 15)):
+        args = quorum_inputs(n, p, seed=n + p, device=dev)
+        got = pq.evaluate_quorum_cuda(*args)
+        want = quorum.evaluate_quorum(*args)
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(got, want)) and got.dtype == want.dtype
+        err = int((got.long() - want.long()).abs().max())
+        checks.append({"shape": [n, p], "exact": exact, "max_abs_err": err})
+        if not exact:
+            raise AssertionError(f"quorum kernel != plain version at "
+                                 f"{(n, p)}: max |err| {err}")
+    n, p = 10_000, 5
+    args = quorum_inputs(n, p, seed=1, device=dev)
+    kernel_ms = cuda_ms(lambda: pq.evaluate_quorum_cuda(*args))
+    plain_ms = cuda_ms(lambda: quorum.evaluate_quorum(*args))
+    kernel_graph_ms = graph_ms(lambda: pq.evaluate_quorum_cuda(*args))
+    plain_graph_ms = graph_ms(lambda: quorum.evaluate_quorum(*args))
+    n_bytes = n * (4 * p + p + 12)          # each input once, output once
+    n_ops = n * (2 * p * p + 4 * p + 8)     # pairwise count + select + gate
+    bound_ms = max(n_bytes / HBM_BYTES_PER_S,
+                   n_ops / NON_TENSOR_OPS_PER_S) * 1e3
+    emit({"phase": "kernels", "checks": checks, "shape": [n, p],
+          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "kernel_graph_ms": kernel_graph_ms,
+          "plain_graph_ms": plain_graph_ms,
+          "bound_ms": bound_ms, "bytes": n_bytes, "ops": n_ops})
+    return {"name": "evaluate_quorum", "route": "cuda",
+            "source": "ra_tpu_torch/ops/csrc/quorum.cu",
+            "replaces": "ra_tpu/ops/pallas_quorum.py:47",
+            "exact": all(c["exact"] for c in checks),
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "shape": [n, p], "kernel_ms": kernel_ms, "ms": kernel_ms,
+            "plain_ms": plain_ms, "kernel_graph_ms": kernel_graph_ms,
+            "plain_graph_ms": plain_graph_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >=
+            n_ops / NON_TENSOR_OPS_PER_S else "operations",
+            # no single PyTorch call computes a voter-masked median with
+            # the term gate
+            "library_ms": None}
+
+
+def assert_same(a, b, aux_a, aux_b, what: str, state_to_numpy) -> None:
+    sa, sb = state_to_numpy(a.state), state_to_numpy(b.state)
+    for k in sb:
+        if sa[k].dtype != sb[k].dtype or not np.array_equal(sa[k], sb[k]):
+            raise AssertionError(f"cuda != cpu at {what}: {k}")
+    for k in (aux_b or {}):
+        x, y = aux_a[k].cpu().numpy(), aux_b[k].cpu().numpy()
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"cuda != cpu at {what}: aux {k}")
+
+
+def phase_parity(pq, LockstepEngine, CounterMachine, state_to_numpy,
+                 dev) -> None:
+    N, P, steps = 1024, 5, 64
+    kw = dict(write_delay=1, max_step_cmds=16, ring_capacity=19,
+              max_step_reads=4, lease_ttl=3, read_timeout=6)
+    gpu = LockstepEngine(CounterMachine(), N, P, device=dev, **kw)
+    cpu = LockstepEngine(CounterMachine(), N, P, device="cpu", **kw)
+    rng = np.random.default_rng(2024)
+    K, Kr = gpu.max_step_cmds, gpu.read_window
+    failed = {}                  # (lane, slot) -> first step it may heal
+    launches = 0
+    for i in range(steps):
+        leader = cpu.state.leader_slot.numpy()
+        for lane, slot in zip(rng.integers(N, size=24),
+                              rng.integers(P, size=24)):
+            lane, slot = int(lane), int(slot)
+            if (lane, slot) not in failed:
+                for e in (gpu, cpu):
+                    e.fail_member(lane, slot)
+                failed[(lane, slot)] = i + int(rng.integers(1, 6))
+        heal = [k for k, t in failed.items() if t <= i and
+                k[1] != leader[k[0]]]
+        if heal:
+            lanes, slots = zip(*heal)
+            for e in (gpu, cpu):
+                e.recover_members(list(lanes), list(slots))
+            for k in heal:
+                del failed[k]
+        if i % 16 == 5:
+            lane = int(rng.integers(N))
+            slot = (int(leader[lane]) + 1) % P
+            if (lane, slot) not in failed:
+                for e in (gpu, cpu):
+                    e.remove_member(lane, slot)
+                    e.add_member(lane, slot, voter=False)
+                    e.promote_member(lane, slot)
+        n_new = rng.integers(0, K + 1, size=N).astype(np.int32)
+        payloads = rng.integers(-9, 10, size=(N, K, 1)).astype(np.int32)
+        step_kw = {"elect_mask": rng.random(N) < 0.1,   # ties are common
+                   "query_mask": rng.random(N) < 0.2}
+        if i % 3 == 0:
+            step_kw["n_read"] = np.where(rng.random(N) < 0.5,
+                                         rng.integers(1, Kr + 2, size=N),
+                                         0).astype(np.int32)
+            step_kw["read_q"] = np.zeros((N, Kr, 1), np.int32)
+        before = pq.LAUNCHES
+        aux_g = gpu.step(n_new, payloads, **step_kw)
+        if pq.LAUNCHES != before + 1:
+            raise AssertionError("a cuda step must launch the quorum "
+                                 "kernel exactly once")
+        launches += 1
+        aux_c = cpu.step(n_new, payloads, **step_kw)
+        assert_same(gpu, cpu, aux_g, aux_c, f"step {i}", state_to_numpy)
+        if i % 8 == 7:
+            lanes = rng.choice(N, size=32, replace=False)
+            for e in (gpu, cpu):
+                e.trigger_election(lanes)
+            launches += 1
+            assert_same(gpu, cpu, None, None, f"election after {i}",
+                        state_to_numpy)
+    st = cpu.state
+    if int(st.telem.leader_changes.sum()) == 0 or \
+            int(st.read_served.sum()) == 0:
+        raise AssertionError("the parity schedule moved no leader or "
+                             "served no read")
+    emit({"phase": "parity", "lanes": N, "members": P,
+          "steps": steps + steps // 8, "equal_every_step": True,
+          "kernel_launches": launches,
+          "elections_won": int(st.telem.elections_won.sum()),
+          "leader_changes": int(st.telem.leader_changes.sum()),
+          "committed": cpu.committed_total(),
+          "reads_served": int(st.read_served.sum()),
+          "reads_refused": int(st.read_stale.sum() + st.read_shed.sum())})
+
+
+def phase_main_path(pq, LockstepEngine, CounterMachine, dev,
+                    n_lanes: int = 10_000) -> int:
+    N, P, cmds = n_lanes, 5, 128
+    warm, timed = 10, 200
+    pq.LAUNCHES = 0
+    eng = LockstepEngine(CounterMachine(), N, P, ring_capacity=1024,
+                         max_step_cmds=128, apply_window=130, write_delay=1,
+                         device=dev)
+    for _ in range(warm):
+        eng.uniform_step(cmds)
+    torch.cuda.synchronize()
+    committed0 = eng.committed_total()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        eng.uniform_step(cmds)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    committed1 = eng.committed_total()
+    for _ in range(2):           # settle the last confirms
+        eng.uniform_step(0)
+    want = cmds * (warm + timed)
+    per_lane = eng.committed_per_lane()
+    counters = eng.machine_states()                       # [N, P]
+    lead = eng.state.leader_slot.cpu().numpy()
+    lead_value = counters[np.arange(N), lead]
+    if not (per_lane == want).all():
+        raise AssertionError(f"total_committed != {want} on "
+                             f"{int((per_lane != want).sum())} lanes")
+    if not (lead_value == want).all():
+        raise AssertionError(f"leader counter != {want} on "
+                             f"{int((lead_value != want).sum())} lanes")
+    lanes = np.linspace(0, N - 1, 64).astype(np.int64)
+    replies, wm, ok = eng.read_lanes(lanes, np.zeros((64, 1), np.int32))
+    if not ok.all() or not (replies[:, 0] == lead_value[lanes]).all():
+        raise AssertionError("read_lanes did not serve the counters")
+    torch.cuda.synchronize()
+    launches = pq.LAUNCHES
+    steps = eng.pipeline_counters["inner_steps"]
+    if launches != steps:
+        raise AssertionError(f"{launches} quorum-kernel launches in "
+                             f"{steps} main-path steps")
+    emit({"phase": "main_path", "lanes": N, "members": P,
+          "cmds_per_step": cmds, "timed_steps": timed,
+          "committed_cmds_per_s": (committed1 - committed0) / seconds,
+          "ms_per_step": seconds / timed * 1e3,
+          "committed_per_lane": want, "leader_counter_ok": True,
+          "read_lanes_ok": True, "read_watermark_min": int(wm.min()),
+          "engine_steps": steps, "quorum_kernel_launches": launches,
+          "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    # the port comes from the checkout this script sits in: alone in a
+    # directory, the script stops here
+    from ra_tpu_torch.convert import state_to_numpy
+    from ra_tpu_torch.engine import LockstepEngine
+    from ra_tpu_torch.models import CounterMachine
+    from ra_tpu_torch.ops import _build, quorum
+    from ra_tpu_torch.ops import pallas_quorum as pq
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": card, "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "sources": _build.sources(),
+          "ptxas": [ln.strip() for out in logs.values()
+                    for ln in out.splitlines()
+                    if "registers" in ln or "spill" in ln]})
+
+    kernel = phase_kernels(pq, quorum, dev)
+    phase_parity(pq, LockstepEngine, CounterMachine, state_to_numpy, dev)
+    kernel["launches"] = phase_main_path(pq, LockstepEngine, CounterMachine,
+                                         dev)
+    emit({"kernels": [kernel]})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,849 @@
+"""Lockstep multi-Raft lane engine on torch tensors.
+
+The counterpart of ``ra_tpu/engine/lockstep.py``: all members of all
+co-hosted Raft clusters live in SoA tensors with a leading lane axis, and
+one ``step`` advances every cluster at once.  Per lane, ``_step`` runs:
+
+  0. failures, divergent-tail clamp and the vote round;
+  1. leader append into the ``[N,R,C]`` payload ring (with backpressure);
+  2. replication under ``pipeline_credit``;
+  3. write confirm (``write_delay`` 0 or 1);
+  4. reply fold and the commit quorum — on a CUDA engine one launch of
+     the hand-written kernel (``ops.pallas_quorum``), on the CPU its
+     plain torch version;
+  4a. lease and read registration; 4b. the query quorum;
+  5. the apply fold over the committed window;
+  5b. per-lane telemetry; 5c. read serve or refuse.
+
+Every tensor keeps the reference's dtype (int32 or bool), and the state
+after every step equals the JAX engine's on the same inputs
+(``tests/test_torch_engine.py``).  ``step`` never reads the device back:
+host masks are numpy data copied to the device.  The durable engine,
+superstep and the sequential-machine apply path are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..convert import state_from_numpy, state_to_numpy
+from ..core.machine import JitMachine
+from ..core.tree import tree_map
+from ..device import DeviceLike, resolve_device
+from ..metrics import ENGINE_PIPELINE_FIELDS, TELEMETRY_FIELDS
+from ..ops.pallas_quorum import evaluate_quorum_dispatch
+from ..ops.quorum import (election_quorum, pipeline_credit, query_quorum,
+                          update_match_next)
+
+Tensor = torch.Tensor
+I32 = torch.int32
+_BIG = 2 ** 30   # above any index: the masked-min sentinel
+
+
+def _take(x: Tensor, slot: Tensor) -> Tensor:
+    """``x[lane, slot[lane]]`` for every lane: x [N,P,...], slot int32[N]."""
+    idx = slot.long().reshape((-1, 1) + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, idx.expand((x.shape[0], 1) + x.shape[2:]))[:, 0]
+
+
+def _ring_write(ring: Tensor, payloads: Tensor, leader_last: Tensor,
+                n_acc: Tensor, elect_ok: Tensor) -> Tensor:
+    """Append ``n_acc`` payload rows (entries leader_last+1..+n_acc at
+    slots (idx-1) % R) plus, on a won election, the zero-payload
+    term-opening noop.  Out of place.  Masked columns are parked on one
+    dummy slot one past the write range and all write that slot's OLD
+    value, so duplicate indexes write equal values and the result does
+    not depend on scatter order (needs R >= K + 3, checked by the
+    engine)."""
+    N, R, C = ring.shape
+    K = payloads.shape[1]
+    vals = torch.cat([payloads.to(ring.dtype),
+                      ring.new_zeros((N, 1, C))], dim=1)       # [N,K+1,C]
+    k_idx = torch.arange(K + 1, dtype=I32, device=ring.device)
+    dest = (leader_last[:, None] + k_idx[None, :]) % R          # [N,K+1]
+    noop_col = k_idx[None, :] == n_acc[:, None]
+    write_mask = (k_idx[None, :] < n_acc[:, None]) | \
+        (noop_col & elect_ok[:, None])
+    dummy = ((leader_last + K + 1) % R)[:, None]
+    dest3 = torch.where(write_mask, dest, dummy).long()[..., None] \
+        .expand(vals.shape)
+    vals = torch.where(noop_col[..., None], 0, vals)
+    old = torch.gather(ring, 1, dest3)
+    vals = torch.where(write_mask[..., None], vals, old)
+    return ring.scatter(1, dest3, vals)
+
+
+def _ring_read_window(ring: Tensor, idx_lane: Tensor) -> Tensor:
+    """Read the per-lane entry window ``idx_lane`` (int32[N,A]) from the
+    ring: [N,A,C].  Slot mapping (idx-1) % R."""
+    N, R, C = ring.shape
+    slot = ((idx_lane - 1) % R).long()
+    return torch.gather(ring, 1, slot[..., None].expand(slot.shape + (C,)))
+
+
+class LaneTelemetry(NamedTuple):
+    """Device-resident per-lane telemetry accumulators, int32[N] each;
+    field meanings are ``metrics.TELEMETRY_FIELDS``'."""
+
+    elections_requested: Tensor
+    elections_won: Tensor
+    leader_changes: Tensor
+    leader_age: Tensor
+    commit_lag: Tensor
+    apply_lag: Tensor
+    stall_steps: Tensor
+    steps: Tensor
+
+
+assert LaneTelemetry._fields == TELEMETRY_FIELDS  # registry parity
+
+
+def _init_telemetry(n_lanes: int, device: torch.device) -> LaneTelemetry:
+    # one zeros() PER field: a shared tensor would alias one buffer 8 ways
+    return LaneTelemetry(*(torch.zeros((n_lanes,), dtype=I32, device=device)
+                           for _ in LaneTelemetry._fields))
+
+
+class LaneState(NamedTuple):
+    """SoA state for N lanes x P member slots (the reference's 30 fields,
+    same names, shapes and dtypes)."""
+
+    term: Tensor           # int32[N]   shared current term
+    leader_slot: Tensor    # int32[N]   which slot leads the lane
+    term_start: Tensor     # int32[N]   index of this term's noop (§5.4.2)
+    last_index: Tensor     # int32[N,P] per-member log tail
+    last_written: Tensor   # int32[N,P] fsync-confirmed tail
+    match: Tensor          # int32[N,P] leader's view (own slot = written)
+    next_index: Tensor     # int32[N,P] per-peer send cursor
+    commit: Tensor         # int32[N,P] per-member commit index
+    applied: Tensor        # int32[N,P] per-member last applied
+    voter: Tensor          # bool[N,P]  voting members
+    active: Tensor         # bool[N,P]  member exists and is up
+    ring: Tensor           # [N,R,C]    payload ring, slot (idx-1) % R
+    ring_base: Tensor      # int32[N]   reclaim horizon
+    total_committed: Tensor  # int32[N] cumulative committed entries
+    query_index: Tensor    # int32[N]   consistent-query counter
+    peer_query: Tensor     # int32[N,P] per-member confirmed query index
+    query_agreed: Tensor   # int32[N]   majority-confirmed query index
+    read_clock: Tensor     # int32[N]   monotone step clock (lease base)
+    lease_until: Tensor    # int32[N]   leader lease expiry
+    read_buf: Tensor       # [N,Kr,Cq]  pending read-query batch
+    read_n: Tensor         # int32[N]   pending read count (0 = slot free)
+    read_ix: Tensor        # int32[N]   captured read index
+    read_tok: Tensor       # int32[N]   captured heartbeat token
+    read_reg: Tensor       # int32[N]   registration clock
+    read_served: Tensor    # int32[N]   cumulative reads served
+    read_shed: Tensor      # int32[N]   cumulative reads shed at arrival
+    read_stale: Tensor     # int32[N]   cumulative stale-refusals
+    read_leased: Tensor    # int32[N]   served-under-lease subset
+    telem: Any             # LaneTelemetry
+    mac: Any               # machine state tree, leading dims [N,P]
+
+
+#: per-field restore behaviour for archives written before the field
+#: existed: "require" refuses a missing leaf, "zeros" zero-fills it,
+#: "init" keeps the restoring engine's current value.  Same table as the
+#: reference, so both engines restore the same archives the same way.
+CHECKPOINT_FIELD_DEFAULTS = {
+    "term": "require",
+    "leader_slot": "require",
+    "term_start": "require",
+    "last_index": "require",
+    "last_written": "require",
+    "match": "require",
+    "next_index": "require",
+    "commit": "require",
+    "applied": "require",
+    "voter": "require",
+    "active": "require",
+    "ring": "require",
+    "ring_base": "require",
+    "total_committed": "require",
+    "query_index": "require",
+    "peer_query": "require",
+    "query_agreed": "require",
+    # a lease must never survive a restart, and a pending read batch's
+    # client is gone; the cumulative read counters are health state
+    "read_clock": "zeros",
+    "lease_until": "zeros",
+    "read_buf": "zeros",
+    "read_n": "zeros",
+    "read_ix": "zeros",
+    "read_tok": "zeros",
+    "read_reg": "zeros",
+    "read_served": "zeros",
+    "read_shed": "zeros",
+    "read_stale": "zeros",
+    "read_leased": "zeros",
+    "telem": "zeros",
+    "mac": "require",
+}
+
+
+def _init_state(n_lanes: int, n_members: int, ring_capacity: int,
+                payload_width: int, mac_state: Any, device: torch.device,
+                payload_dtype=I32, read_window: int = 1,
+                query_width: int = 1, query_dtype=I32) -> LaneState:
+    N, P, R, C = n_lanes, n_members, ring_capacity, payload_width
+
+    def z(*s):
+        return torch.zeros(s, dtype=I32, device=device)
+
+    def ones(*s):
+        return torch.ones(s, dtype=I32, device=device)
+
+    return LaneState(
+        term=ones(N),
+        leader_slot=z(N),
+        term_start=ones(N),
+        last_index=z(N, P),
+        last_written=z(N, P),
+        match=z(N, P),
+        next_index=ones(N, P),
+        commit=z(N, P),
+        applied=z(N, P),
+        voter=torch.ones((N, P), dtype=torch.bool, device=device),
+        active=torch.ones((N, P), dtype=torch.bool, device=device),
+        ring=torch.zeros((N, R, C), dtype=payload_dtype, device=device),
+        ring_base=z(N),
+        total_committed=z(N),
+        query_index=z(N),
+        peer_query=z(N, P),
+        query_agreed=z(N),
+        read_clock=z(N),
+        lease_until=z(N),
+        read_buf=torch.zeros((N, read_window, query_width),
+                             dtype=query_dtype, device=device),
+        read_n=z(N),
+        read_ix=z(N),
+        read_tok=z(N),
+        read_reg=z(N),
+        read_served=z(N),
+        read_shed=z(N),
+        read_stale=z(N),
+        read_leased=z(N),
+        telem=_init_telemetry(N, device),
+        mac=mac_state,
+    )
+
+
+def _step(state: LaneState, n_new: Tensor, payloads: Tensor,
+          fail_mask: Tensor, elect_mask: Tensor, query_mask: Tensor,
+          n_read: Tensor, read_q: Tensor, *, machine: JitMachine,
+          ring_capacity: int, apply_window: int, pipeline_window: int,
+          max_append_batch: int, write_delay: int, lease_ttl: int = 8,
+          read_timeout: int = 64):
+    """One lockstep round for every lane.  Pure: returns
+    ``(new_state, aux)`` and leaves ``state`` untouched.  The phases and
+    their Raft sources are those of the reference ``_step``
+    (``ra_tpu/engine/lockstep.py``), without its durable branches."""
+    if not machine.supports_batch_apply:
+        raise NotImplementedError(
+            "the port's apply fold needs a machine with "
+            "supports_batch_apply=True; sequential machines are not "
+            "ported yet")
+    N, P = state.last_index.shape
+    R = ring_capacity
+    dev = state.term.device
+    slots = torch.arange(P, device=dev)
+
+    # -- 0. failures, divergence repair, elections ------------------------
+    active = state.active & ~fail_mask
+    # an active non-leader's tail never extends past its leader's log
+    leader_arm0 = slots[None, :] == state.leader_slot[:, None]
+    cur_leader_last = _take(state.last_index, state.leader_slot)
+    clamp = active & ~leader_arm0
+    last_index0 = torch.where(
+        clamp, torch.minimum(state.last_index, cur_leader_last[:, None]),
+        state.last_index)
+    last_written0 = torch.minimum(state.last_written, last_index0)
+
+    # vote round: candidate = active voter with the longest durable log
+    # (first one on ties); voters grant iff the candidate is up to date;
+    # the candidacy needs a counted quorum of grants
+    score = torch.where(active & state.voter, last_written0, -1)
+    cand = torch.argmax(score, dim=-1).to(I32)
+    cand_written = _take(last_written0, cand)
+    grants = active & state.voter & (cand_written[:, None] >= last_written0)
+    won = election_quorum(grants, state.voter)
+    elect_ok = elect_mask & won
+
+    leader_slot = torch.where(elect_ok, cand, state.leader_slot)
+    term = torch.where(elect_ok, state.term + 1, state.term)
+    leader_arm = slots[None, :] == leader_slot[:, None]
+    leader_last = _take(last_index0, leader_slot)
+    leader_written = _take(last_written0, leader_slot)
+    # a new leader discards its unwritten tail and opens its term at
+    # written+1 with a noop entry
+    leader_last = torch.where(elect_ok, leader_written, leader_last)
+    term_start = torch.where(elect_ok, leader_last + 1, state.term_start)
+    n_noop = elect_ok.to(I32)
+    leader_up = _take(active, leader_slot)
+
+    # -- 1. leader append into the ring (with backpressure) ---------------
+    min_applied = torch.where(active, state.applied, _BIG).amin(dim=-1)
+    ring_base = torch.maximum(state.ring_base,
+                              torch.minimum(min_applied, leader_last))
+    headroom = torch.clamp(R - (leader_last - ring_base) - 1, min=0)
+    n_acc = torch.minimum(torch.where(leader_up, n_new, 0), headroom)
+    n_acc = torch.clamp(n_acc, max=payloads.shape[1])
+    total_app = n_acc + torch.where(leader_up, n_noop, 0)
+    ring = _ring_write(state.ring, payloads, leader_last, n_acc, elect_ok)
+    new_leader_last = leader_last + total_app
+
+    # -- 2. replication, governed by per-peer pipeline credit --------------
+    # a won election resets peer cursors (next := last+1, match := 0)
+    next0 = torch.where(elect_ok[:, None], new_leader_last[:, None] + 1,
+                        state.next_index)
+    match0 = torch.where(elect_ok[:, None],
+                         torch.where(leader_arm, leader_written[:, None], 0),
+                         state.match)
+    zeros_n = torch.zeros((N,), dtype=I32, device=dev)
+    n_send, _needs = pipeline_credit(next0, match0, new_leader_last, zeros_n,
+                                     torch.zeros_like(next0),
+                                     pipeline_window, max_append_batch)
+    send_hi = next0 + n_send - 1
+    # adopt only when entries actually ship
+    last_index = torch.where(active & (n_send > 0),
+                             torch.maximum(last_index0, send_hi),
+                             last_index0)
+    last_index = torch.where(leader_arm, new_leader_last[:, None],
+                             last_index)
+    # on a won election, follower tails cap at the NEW leader's log
+    last_index = torch.where(elect_ok[:, None] & active,
+                             torch.minimum(last_index,
+                                           new_leader_last[:, None]),
+                             last_index)
+
+    # -- 3. write confirm -------------------------------------------------
+    if write_delay == 0:
+        last_written = torch.where(active, last_index, last_written0)
+    else:
+        # confirms lag one step: this step confirms the previous tail
+        last_written = torch.where(active,
+                                   torch.minimum(last_index, last_index0),
+                                   last_written0)
+    last_written = torch.minimum(last_written, last_index)
+
+    # -- 4. reply fold + quorum -------------------------------------------
+    match, _ = update_match_next(match0, next0, active, last_written,
+                                 last_index + 1)
+    next_index = torch.where(active, last_index + 1, next0)
+    leader_commit0 = _take(state.commit, leader_slot)
+    # down members stay in the quorum denominator: a leader that lost a
+    # majority stops committing.  One kernel launch on a CUDA engine.
+    new_leader_commit = evaluate_quorum_dispatch(
+        leader_commit0, match, state.voter, term_start)
+    commit = torch.minimum(new_leader_commit[:, None], last_index)
+    commit = torch.where(active, torch.maximum(commit, state.commit),
+                         state.commit)
+    delta = _take(commit, leader_slot) - leader_commit0
+    total_committed = state.total_committed + delta
+
+    # -- 4a. lease grant/expiry + read-batch registration ------------------
+    read_clock = state.read_clock + 1
+    lease_q = election_quorum(active & state.voter, state.voter)
+    lease_until = torch.where(elect_ok, 0, state.lease_until)
+    lease_until = torch.where(
+        lease_q & leader_up,
+        torch.maximum(lease_until, read_clock + lease_ttl), lease_until)
+    lease_ok = read_clock < lease_until
+
+    supports_read = machine.query_spec is not None
+    Kr = state.read_buf.shape[1]
+    if supports_read:
+        acc_lane = (n_read > 0) & leader_up & (state.read_n == 0)
+    else:
+        acc_lane = torch.zeros((N,), dtype=torch.bool, device=dev)
+    r_acc = torch.where(acc_lane, torch.clamp(n_read, max=Kr), 0)
+    r_shed_now = n_read - r_acc
+    read_buf = torch.where(acc_lane[:, None, None], read_q, state.read_buf)
+    read_ix = torch.where(acc_lane, leader_commit0, state.read_ix)
+    read_reg = torch.where(acc_lane, read_clock, state.read_reg)
+    read_n1 = torch.where(acc_lane, r_acc, state.read_n)
+
+    # -- 4b. consistent-query heartbeat quorum (plain torch: the reference
+    # computes it outside its Pallas kernel too) ---------------------------
+    query_index = state.query_index + (query_mask | acc_lane).to(I32)
+    read_tok = torch.where(acc_lane, query_index, state.read_tok)
+    peer_q0 = torch.where(elect_ok[:, None], 0, state.peer_query)
+    peer_query = torch.where(active, query_index[:, None], peer_q0)
+    query_agreed = query_quorum(peer_query, state.voter)
+
+    # -- 5. apply fold over the (lane-uniform) committed window ------------
+    applied0 = state.applied
+    A = apply_window
+    apply_to = torch.minimum(commit, applied0 + A)
+    base = torch.where(active, applied0, _BIG).amin(dim=-1)
+    base = torch.where(active.any(dim=-1), base, 0)             # [N]
+    a_idx = torch.arange(A, dtype=I32, device=dev)
+    idx_lane = base[:, None] + 1 + a_idx[None, :]              # [N,A]
+    cmds_lane = _ring_read_window(ring, idx_lane)              # [N,A,C]
+    idx = idx_lane[:, None, :]                                 # [N,1,A]
+    do = (idx > applied0[..., None]) & (idx <= apply_to[..., None]) \
+        & active[..., None]                                    # [N,P,A]
+    cmds = cmds_lane[:, None].expand(do.shape + cmds_lane.shape[-1:])
+    meta = {"index": idx.expand(do.shape), "term": term[:, None, None]}
+    mac = machine.jit_apply_batch(meta, cmds, do, state.mac)
+    applied = torch.where(
+        active,
+        torch.maximum(applied0,
+                      torch.minimum(apply_to, (base + A)[:, None])),
+        applied0)
+
+    # -- 5b. per-lane telemetry accumulators -------------------------------
+    tel = state.telem
+    leader_commit_new = leader_commit0 + delta
+    lane_applied = torch.where(active, applied, _BIG).amin(dim=-1)
+    lane_applied = torch.where(active.any(dim=-1), lane_applied, 0)
+    lead_changed = leader_slot != state.leader_slot
+    backlog = new_leader_last > leader_commit_new
+    telem = LaneTelemetry(
+        elections_requested=tel.elections_requested + elect_mask.to(I32),
+        elections_won=tel.elections_won + elect_ok.to(I32),
+        leader_changes=tel.leader_changes + lead_changed.to(I32),
+        # reset only when the leader actually moved
+        leader_age=torch.where(lead_changed, 0, tel.leader_age + 1),
+        commit_lag=new_leader_last - leader_commit_new,
+        apply_lag=leader_commit_new - lane_applied,
+        stall_steps=torch.where((delta > 0) | ~backlog, 0,
+                                tel.stall_steps + 1),
+        steps=tel.steps + 1)
+
+    # -- 5c. read serve/refuse ---------------------------------------------
+    # authority: live lease OR the heartbeat quorum confirmed the batch's
+    # token; freshness: the leader applied up to the captured read index
+    lead_applied = _take(applied, leader_slot)
+    authority = lease_ok | (query_agreed >= read_tok)
+    can_serve = (read_n1 > 0) & leader_up & authority & \
+        (lead_applied >= read_ix)
+    expired = (read_n1 > 0) & ~can_serve & \
+        (read_clock - read_reg >= read_timeout)
+    if supports_read:
+        replies = machine.jit_query(
+            read_buf, tree_map(lambda x: _take(x, leader_slot), mac))
+        replies = torch.where(can_serve[:, None, None], replies, 0)
+    else:
+        replies = torch.zeros((N, Kr, 1), dtype=I32, device=dev)
+    read_done = torch.where(can_serve, read_n1, 0)
+    stale_now = torch.where(expired, read_n1, 0)
+    read_served = state.read_served + read_done
+    read_shed_tot = state.read_shed + r_shed_now
+    read_stale_tot = state.read_stale + stale_now
+    read_leased = state.read_leased + \
+        torch.where(can_serve & lease_ok, read_n1, 0)
+
+    new_state = LaneState(term=term, leader_slot=leader_slot,
+                          term_start=term_start, last_index=last_index,
+                          last_written=last_written, match=match,
+                          next_index=next_index, commit=commit,
+                          applied=applied, voter=state.voter, active=active,
+                          ring=ring, ring_base=ring_base,
+                          total_committed=total_committed,
+                          query_index=query_index, peer_query=peer_query,
+                          query_agreed=query_agreed,
+                          read_clock=read_clock, lease_until=lease_until,
+                          read_buf=read_buf,
+                          read_n=torch.where(can_serve | expired, 0,
+                                             read_n1),
+                          read_ix=read_ix, read_tok=read_tok,
+                          read_reg=read_reg, read_served=read_served,
+                          read_shed=read_shed_tot,
+                          read_stale=read_stale_tot,
+                          read_leased=read_leased, telem=telem, mac=mac)
+    aux = {"appended_hi": new_leader_last, "n_acc": n_acc,
+           "n_app": total_app,
+           "read_done": read_done, "read_shed": r_shed_now,
+           "read_stale": stale_now,
+           "read_watermark": torch.where(can_serve, lead_applied, -1),
+           "read_replies": replies,
+           "read_served_lanes": read_served,
+           "read_shed_lanes": read_shed_tot,
+           "read_stale_lanes": read_stale_tot}
+    return new_state, aux
+
+
+def _dtype(name: str) -> torch.dtype:
+    """The torch dtype of a machine spec's dtype name (e.g. "int32")."""
+    return getattr(torch, np.dtype(name).name)
+
+
+class LockstepEngine:
+    """Host API around the lockstep step.  Runs on ``device``: ``None``
+    means the CUDA card (and raises where there is none); ``"cpu"`` runs
+    the plain torch path on the CPU."""
+
+    def __init__(self, machine: JitMachine, n_lanes: int, n_members: int = 3,
+                 *, ring_capacity: int = 1024, max_step_cmds: int = 64,
+                 apply_window: Optional[int] = None,
+                 pipeline_window: int = 4096, max_append_batch: int = 128,
+                 write_delay: int = 0, max_step_reads: int = 16,
+                 lease_ttl: int = 8, read_timeout: int = 0,
+                 device: DeviceLike = None) -> None:
+        self.device = resolve_device(device)
+        self.machine = machine
+        self.n_lanes = n_lanes
+        self.n_members = n_members
+        if ring_capacity < max_step_cmds + 3:
+            # the ring write parks masked columns one slot past the write
+            # range (payload + noop + recovery-replay widths)
+            raise ValueError("ring_capacity must be >= max_step_cmds + 3")
+        self.ring_capacity = ring_capacity
+        self.max_step_cmds = max_step_cmds
+        self.apply_window = apply_window or (max_step_cmds + 2)
+        dtype, shape = machine.command_spec
+        self.payload_width = int(np.prod(shape)) if shape else 1
+        self.payload_dtype = _dtype(dtype)
+        # a machine without a query kernel still carries minimal [N,1,1]
+        # read fields, so the checkpoint schema stays uniform
+        self.reads_enabled = machine.query_spec is not None
+        self.read_window = max(1, int(max_step_reads)) \
+            if self.reads_enabled else 1
+        if self.reads_enabled:
+            qdtype, qshape = machine.query_spec
+            self.query_width = int(np.prod(qshape)) if qshape else 1
+            self.query_dtype = _dtype(qdtype)
+            _rd, rshape = machine.query_reply_spec
+            self.query_reply_width = int(np.prod(rshape)) if rshape else 1
+        else:
+            self.query_width = 1
+            self.query_dtype = I32
+            self.query_reply_width = 1
+        self.lease_ttl = int(lease_ttl)
+        self.read_timeout = int(read_timeout) if read_timeout \
+            else 8 * self.lease_ttl
+        # machine state broadcast over member slots: [N,...] -> [N,P,...];
+        # clone, since an expanded view would alias one buffer P ways
+        mac = tree_map(
+            lambda x: x[:, None].expand(
+                (n_lanes, n_members) + x.shape[1:]).clone(),
+            machine.jit_init(n_lanes, self.device))
+        self.state = _init_state(n_lanes, n_members, ring_capacity,
+                                 self.payload_width, mac, self.device,
+                                 self.payload_dtype, self.read_window,
+                                 self.query_width, self.query_dtype)
+        self._step_kwargs = dict(machine=machine,
+                                 ring_capacity=ring_capacity,
+                                 apply_window=self.apply_window,
+                                 pipeline_window=pipeline_window,
+                                 max_append_batch=max_append_batch,
+                                 write_delay=write_delay,
+                                 lease_ttl=self.lease_ttl,
+                                 read_timeout=self.read_timeout)
+        #: host-side dispatch bookkeeping (ENGINE_PIPELINE_FIELDS)
+        self.pipeline_counters = {f: 0 for f in ENGINE_PIPELINE_FIELDS}
+        dev = self.device
+        self._zero_fail = torch.zeros((n_lanes, n_members), dtype=torch.bool,
+                                      device=dev)
+        self._zero_elect = torch.zeros((n_lanes,), dtype=torch.bool,
+                                       device=dev)
+        self._zero_nread = torch.zeros((n_lanes,), dtype=I32, device=dev)
+        self._zero_readq = torch.zeros(
+            (n_lanes, self.read_window, self.query_width),
+            dtype=self.query_dtype, device=dev)
+        self._fail_host = np.zeros((n_lanes, n_members), bool)
+
+    # -- driving -----------------------------------------------------------
+
+    def _dev(self, x, dtype: torch.dtype) -> Tensor:
+        """Host data (numpy, lists) or a tensor, as ``dtype`` on the
+        engine's device."""
+        return torch.as_tensor(x).to(device=self.device, dtype=dtype)
+
+    def step(self, n_new, payloads, elect_mask=None, query_mask=None,
+             n_read=None, read_q=None) -> dict:
+        """Advance every lane one round.  n_new: int32[N]; payloads:
+        [N, K, C] with K <= max_step_cmds.  Masks (bool[N]) are host data.
+        ``n_read``/``read_q`` (int32[N], [N, Kr, Cq]) register
+        consistent-read batches.  Returns the step aux (device tensors)."""
+        fail = (self._dev(self._fail_host, torch.bool)
+                if self._fail_host.any() else self._zero_fail)
+        elect = self._zero_elect if elect_mask is None \
+            else self._dev(elect_mask, torch.bool)
+        query = self._zero_elect if query_mask is None \
+            else self._dev(query_mask, torch.bool)
+        nr = self._zero_nread if n_read is None else self._dev(n_read, I32)
+        rq = self._zero_readq if read_q is None \
+            else self._dev(read_q, self.query_dtype)
+        self.pipeline_counters["dispatches"] += 1
+        self.pipeline_counters["inner_steps"] += 1
+        self.state, aux = _step(self.state, self._dev(n_new, I32),
+                                self._dev(payloads, self.payload_dtype),
+                                fail, elect, query, nr, rq,
+                                **self._step_kwargs)
+        return aux
+
+    def uniform_step(self, cmds_per_lane: int, payload_value=1) -> dict:
+        """Every lane's leader receives the same number of commands this
+        round (the bench shape)."""
+        N, K, C = self.n_lanes, self.max_step_cmds, self.payload_width
+        n_new = torch.full((N,), min(cmds_per_lane, K), dtype=I32,
+                           device=self.device)
+        payloads = torch.full((N, K, C), payload_value,
+                              dtype=self.payload_dtype, device=self.device)
+        return self.step(n_new, payloads)
+
+    def _empty_step(self, **kw) -> dict:
+        N, K, C = self.n_lanes, self.max_step_cmds, self.payload_width
+        return self.step(torch.zeros((N,), dtype=I32, device=self.device),
+                         torch.zeros((N, K, C), dtype=self.payload_dtype,
+                                     device=self.device), **kw)
+
+    # -- failure injection / elections ------------------------------------
+
+    def fail_member(self, lane: int, slot: int) -> None:
+        self._fail_host[lane, slot] = True
+
+    def recover_member(self, lane: int, slot: int) -> None:
+        """Re-activate a member by snapshot install from the lane leader
+        (machine state and cursors copied from the leader's replica).
+        Recovering the lane's CURRENT leader slot is refused: revive the
+        others, ``trigger_election``, then recover the deposed slot."""
+        if int(self.state.leader_slot[lane]) == slot:
+            raise ValueError(
+                f"slot {slot} is lane {lane}'s leader; recover the other "
+                "members, trigger_election, then recover this slot")
+        self._fail_host[lane, slot] = False
+        self.state = self._snapshot_install(lane, slot)
+
+    def recover_members(self, lanes, slots) -> None:
+        """Vectorized :meth:`recover_member`: revive many (lane, slot)
+        pairs in one masked snapshot install.  Same contract."""
+        lanes = np.atleast_1d(np.asarray(lanes)).astype(np.int64)
+        slots = np.atleast_1d(np.asarray(slots)).astype(np.int64)
+        if not len(lanes):
+            return
+        leads = self.state.leader_slot.cpu().numpy()[lanes]
+        if (leads == slots).any():
+            bad = lanes[leads == slots]
+            raise ValueError(
+                f"lanes {bad[:8].tolist()}: slot is the lane's leader; "
+                "recover the other members, trigger_election, then "
+                "recover this slot")
+        self._fail_host[lanes, slots] = False
+        rv_host = np.zeros((self.n_lanes, self.n_members), bool)
+        rv_host[lanes, slots] = True
+        rv = self._dev(rv_host, torch.bool)
+        st = self.state
+        snap = _take(st.applied, st.leader_slot)[:, None]       # [N,1]
+
+        def from_leader(x):
+            lx = _take(x, st.leader_slot)[:, None]
+            m = rv.reshape(rv.shape + (1,) * (x.dim() - 2))
+            return torch.where(m, lx, x)
+
+        self.state = st._replace(
+            mac=tree_map(from_leader, st.mac),
+            applied=torch.where(rv, snap, st.applied),
+            commit=torch.where(rv, snap, st.commit),
+            last_index=torch.where(rv, snap, st.last_index),
+            last_written=torch.where(rv, snap, st.last_written),
+            active=st.active | rv)
+
+    @staticmethod
+    def _set(x: Tensor, lane: int, slot: int, value) -> Tensor:
+        """A copy of ``x`` with ``x[lane, slot] = value`` (state tensors
+        are never edited in place: a step's aux may alias them)."""
+        x = x.clone()
+        x[lane, slot] = value
+        return x
+
+    def _snapshot_install(self, lane: int, slot: int) -> LaneState:
+        """Seed a (re)joining member from the lane leader at the leader's
+        APPLIED index, the state its copied machine state reflects."""
+        st = self.state
+        leader = int(st.leader_slot[lane])
+        snap_idx = st.applied[lane, leader]
+        return st._replace(
+            mac=tree_map(lambda x: self._set(x, lane, slot, x[lane, leader]),
+                         st.mac),
+            applied=self._set(st.applied, lane, slot, snap_idx),
+            commit=self._set(st.commit, lane, slot, snap_idx),
+            last_index=self._set(st.last_index, lane, slot, snap_idx),
+            last_written=self._set(st.last_written, lane, slot, snap_idx),
+            active=self._set(st.active, lane, slot, True))
+
+    # -- membership --------------------------------------------------------
+
+    def add_member(self, lane: int, slot: int, voter: bool = False) -> None:
+        """Bring a member slot into a lane's cluster, seeded from the
+        leader's replica; it joins as a nonvoter unless ``voter``."""
+        st = self._snapshot_install(lane, slot)
+        self.state = st._replace(
+            voter=self._set(st.voter, lane, slot, bool(voter)))
+        self._fail_host[lane, slot] = False
+
+    def promote_member(self, lane: int, slot: int) -> None:
+        """Nonvoter -> voter once caught up."""
+        self.state = self.state._replace(
+            voter=self._set(self.state.voter, lane, slot, True))
+
+    def remove_member(self, lane: int, slot: int) -> None:
+        """Drop a member: it leaves the quorum denominator at once.
+        Removing the lane's current leader is refused."""
+        if int(self.state.leader_slot[lane]) == slot:
+            raise ValueError(
+                f"slot {slot} is lane {lane}'s leader; "
+                "trigger_election first")
+        st = self.state
+        self.state = st._replace(
+            active=self._set(st.active, lane, slot, False),
+            voter=self._set(st.voter, lane, slot, False))
+
+    def trigger_election(self, lanes) -> None:
+        mask = np.zeros((self.n_lanes,), bool)
+        mask[np.asarray(lanes)] = True
+        self._empty_step(elect_mask=mask)
+
+    # -- consistent (linearizable) reads -----------------------------------
+
+    def consistent_read(self, lanes, fn=None, timeout_steps: int = 256):
+        """Linearizable read of the lanes' leader machine state: register
+        a query token, then drive empty rounds until a voter majority
+        confirmed it and the leader applied its commit index as of
+        registration.  Returns the state tree (numpy, leading lane axis),
+        or ``fn(state)``.  Raises TimeoutError without a quorum."""
+        lanes = np.atleast_1d(np.asarray(lanes))
+        qm = np.zeros((self.n_lanes,), bool)
+        qm[lanes] = True
+        self._empty_step(query_mask=qm)
+        st = self.state
+        token = st.query_index.cpu().numpy()[lanes]
+        lead = st.leader_slot.cpu().numpy()[lanes]
+        commit_reg = st.commit.cpu().numpy()[lanes, lead]
+        for _ in range(timeout_steps):
+            st = self.state
+            agreed = st.query_agreed.cpu().numpy()[lanes]
+            lead = st.leader_slot.cpu().numpy()[lanes]
+            applied = st.applied.cpu().numpy()[lanes, lead]
+            if (agreed >= token).all() and (applied >= commit_reg).all():
+                mac = tree_map(lambda x: x.cpu().numpy()[lanes, lead],
+                               st.mac)
+                return fn(mac) if fn is not None else mac
+            self._empty_step()
+        raise TimeoutError(
+            "consistent_read: no heartbeat quorum within "
+            f"{timeout_steps} rounds (leader lost its majority?)")
+
+    def read_lanes(self, lanes, queries, timeout_steps: int = 256):
+        """Consistent reads through the vectorized lease/read-index plane:
+        one encoded query per lane (``queries`` [len(lanes), Cq]).
+        Returns numpy ``(replies, watermark, ok)``; ``ok`` is False where
+        the lane refused the read rather than serve it stale.  Raises
+        TimeoutError if a batch neither serves nor refuses in time."""
+        if not self.reads_enabled:
+            raise ValueError("machine has no query kernel "
+                             "(query_spec is None)")
+        lanes = np.atleast_1d(np.asarray(lanes))
+        n = len(lanes)
+        q = np.asarray(queries).reshape(n, -1)
+        nr = np.zeros((self.n_lanes,), np.int32)
+        nr[lanes] = 1
+        rq = np.zeros((self.n_lanes, self.read_window, self.query_width),
+                      np.dtype(self.machine.query_spec[0]))
+        rq[lanes, 0] = q
+        replies = np.zeros((n, self.query_reply_width), np.int32)
+        wm = np.full((n,), -1, np.int32)
+        ok = np.zeros((n,), bool)
+        settled = np.zeros((n,), bool)
+        aux = self._empty_step(n_read=nr, read_q=rq)
+        for _ in range(timeout_steps):
+            done = aux["read_done"].cpu().numpy()[lanes] > 0
+            # refused at arrival or by timeout: settles with ok=False
+            stale = (aux["read_stale"].cpu().numpy()[lanes] > 0) | \
+                (aux["read_shed"].cpu().numpy()[lanes] > 0)
+            fresh = done & ~settled
+            if fresh.any():
+                rep = aux["read_replies"].cpu().numpy()[lanes[fresh], 0]
+                replies[fresh] = rep.reshape(fresh.sum(), -1)
+                wm[fresh] = aux["read_watermark"].cpu().numpy()[
+                    lanes[fresh]]
+                ok[fresh] = True
+            settled |= done | stale
+            if settled.all():
+                return replies, wm, ok
+            aux = self._empty_step()
+        raise TimeoutError(
+            f"read_lanes: {int((~settled).sum())} batches neither "
+            f"served nor refused within {timeout_steps} rounds")
+
+    # -- checkpoint / resume -------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Write the full lane state to one .npz (atomic replace), keys
+        ``<field>:<leaf>`` as the reference engine writes them."""
+        import os
+
+        meta = {"n_lanes": self.n_lanes, "n_members": self.n_members,
+                "ring_capacity": self.ring_capacity,
+                "schema": list(LaneState._fields)}
+        tmp = path + ".partial"
+        with open(tmp, "wb") as f:
+            np.savez(f, __meta__=np.frombuffer(
+                repr(meta).encode(), dtype=np.uint8),
+                **state_to_numpy(self.state))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    def restore(self, path: str) -> None:
+        """Load a schema-named .npz written by :meth:`save` (of either
+        engine).  Geometry must match construction; fields the archive
+        predates restore through ``CHECKPOINT_FIELD_DEFAULTS``."""
+        with np.load(path) as z:
+            arrays = {k: z[k] for k in z.files if k != "__meta__"}
+        if not any(":" in k for k in arrays):
+            raise ValueError("positional (pre-schema) checkpoints are not "
+                             "supported by the torch engine")
+        self.state = state_from_numpy(arrays, self.state, self.device,
+                                      defaults=CHECKPOINT_FIELD_DEFAULTS)
+
+    # -- readback ----------------------------------------------------------
+
+    def committed_total(self) -> int:
+        # per-lane counters are int32; the node-wide sum can exceed 2^31
+        return int(self.state.total_committed.cpu().numpy()
+                   .astype(np.int64).sum())
+
+    def committed_per_lane(self) -> np.ndarray:
+        return self.state.total_committed.cpu().numpy()
+
+    def machine_states(self) -> Any:
+        return tree_map(lambda x: x.cpu().numpy(), self.state.mac)
+
+    def overview(self, lane: int = 0) -> dict:
+        s = self.state
+        out = {
+            "term": int(s.term[lane]),
+            "leader_slot": int(s.leader_slot[lane]),
+            "last_index": s.last_index[lane].tolist(),
+            "last_written": s.last_written[lane].tolist(),
+            "commit": s.commit[lane].tolist(),
+            "applied": s.applied[lane].tolist(),
+            "active": s.active[lane].tolist(),
+            "total_committed": int(s.total_committed[lane]),
+            "device": str(self.device),
+        }
+        out["pipeline"] = {"cmds_per_step": self.max_step_cmds,
+                           **self.pipeline_counters}
+        if self.reads_enabled:
+            def tot(x):
+                return int(x.cpu().numpy().astype(np.int64).sum())
+
+            served = tot(s.read_served)
+            leased = tot(s.read_leased)
+            out["reads"] = {
+                "served_total": served,
+                "shed_total": tot(s.read_shed),
+                "stale_refusals": tot(s.read_stale),
+                "leased_total": leased,
+                "lease_coverage_pct": (100.0 * leased / served)
+                if served else 0.0,
+                "pending_lanes": int((s.read_n > 0).sum()),
+                "lease_ttl": self.lease_ttl,
+                "read_timeout": self.read_timeout,
+                "read_window": self.read_window,
+            }
+        return out
