@@ -9,16 +9,20 @@ non-zero (there is no CPU path and no fallback to a plain version):
   device     the card, and its name and power limit from nvidia-smi
   build      nvcc builds every kernel of ra_tpu_torch/ops/csrc for sm_90a
   kernels    each kernel against its plain torch version on the card at
-             the main path's shape and more, exactly; kernel and plain
-             version timed with CUDA events, per call (host launch
-             included) and back to back in a CUDA graph (device only)
+             the main path's shape and more, exactly: the commit quorum
+             (evaluate_quorum, the public API's kernel) and the fused
+             commit phase (commit_phase, the step's kernel, every output
+             and dtype, both block sizes); kernel and plain version
+             timed with CUDA events, per call (host launch included) and
+             back to back in a CUDA graph (device only)
   parity     a seeded 64-step schedule (failures, elections with ties,
              recovery, membership, read batches) on a 1,024 x 5 engine,
              once on cuda and once on cpu: every LaneState leaf and aux
-             key equal after every step, one quorum-kernel launch a step
+             key equal after every step, one commit_phase launch a step
   main_path  the full-width engine, 10,000 clusters x 5 members, driven
              with uniform_step(128): committed cmds/s and ms/step, then
-             exact commit, counter and read_lanes checks
+             exact commit, counter and read_lanes checks; commit_phase
+             launched once a step, evaluate_quorum never
 
 then the kernels summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -93,9 +97,16 @@ def quorum_inputs(n: int, p: int, seed: int, device) -> tuple:
                  for x in (commit, match, voter, tstart))
 
 
-def phase_kernels(pq, quorum, dev) -> dict:
+def bound(n_bytes: int, n_ops: int) -> tuple:
+    """(bound_ms, bound_by): the least time for the work on the card."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / NON_TENSOR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_quorum_kernel(pq, quorum, dev) -> dict:
     checks = []
-    for n, p in ((10_000, 5), (513, 2), (1024, 7), (4099, 15)):
+    for n, p in ((10_000, 5), (513, 2), (1024, 7), (4099, 15), (2048, 16)):
         args = quorum_inputs(n, p, seed=n + p, device=dev)
         got = pq.evaluate_quorum_cuda(*args)
         want = quorum.evaluate_quorum(*args)
@@ -114,10 +125,9 @@ def phase_kernels(pq, quorum, dev) -> dict:
     plain_graph_ms = graph_ms(lambda: quorum.evaluate_quorum(*args))
     n_bytes = n * (4 * p + p + 12)          # each input once, output once
     n_ops = n * (2 * p * p + 4 * p + 8)     # pairwise count + select + gate
-    bound_ms = max(n_bytes / HBM_BYTES_PER_S,
-                   n_ops / NON_TENSOR_OPS_PER_S) * 1e3
-    emit({"phase": "kernels", "checks": checks, "shape": [n, p],
-          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    emit({"phase": "kernels", "kernel": "evaluate_quorum", "checks": checks,
+          "shape": [n, p], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
           "kernel_graph_ms": kernel_graph_ms,
           "plain_graph_ms": plain_graph_ms,
           "bound_ms": bound_ms, "bytes": n_bytes, "ops": n_ops})
@@ -129,10 +139,68 @@ def phase_kernels(pq, quorum, dev) -> dict:
             "shape": [n, p], "kernel_ms": kernel_ms, "ms": kernel_ms,
             "plain_ms": plain_ms, "kernel_graph_ms": kernel_graph_ms,
             "plain_graph_ms": plain_graph_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >=
-            n_ops / NON_TENSOR_OPS_PER_S else "operations",
+            "bytes": n_bytes, "bound_by": bound_by,
             # no single PyTorch call computes a voter-masked median with
             # the term gate
+            "library_ms": None}
+
+
+def phase_commit_phase_kernel(cpm, dev) -> dict:
+    """The fused commit-phase kernel against its plain version: every
+    output equal with its dtype, at five shapes, reads on and off; then
+    timed at the main path's shape."""
+    kr, ttl = 4, 3
+    checks = []
+    for n, p in ((10_000, 5), (513, 2), (1024, 7), (4099, 15), (2048, 16)):
+        args = tuple(torch.from_numpy(x).to(dev)
+                     for x in cpm.sample_inputs(n, p, seed=n + p, Kr=kr))
+        for supports_read in (True, False):
+            kw = dict(lease_ttl=ttl, Kr=kr, supports_read=supports_read)
+            want = cpm.commit_phase(*args, **kw)
+            got = cpm.commit_phase_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            bad = [k for k, g, w in zip(cpm.CommitPhase._fields, got, want)
+                   if g.dtype != w.dtype or not torch.equal(g, w)]
+            err = max(int((g.long() - w.long()).abs().max())
+                      for g, w in zip(got, want))
+            checks.append({"shape": [n, p], "reads": supports_read,
+                           "exact": not bad, "max_abs_err": err})
+            if bad:
+                raise AssertionError(
+                    f"commit-phase kernel != plain version at {(n, p)}, "
+                    f"reads {supports_read}: {bad}, max |err| {err}")
+    n, p = 10_000, 5
+    args = tuple(torch.from_numpy(x).to(dev)
+                 for x in cpm.sample_inputs(n, p, seed=1, Kr=kr))
+    kw = dict(lease_ttl=ttl, Kr=kr, supports_read=True)
+    kernel_ms = cuda_ms(lambda: cpm.commit_phase_cuda(*args, **kw))
+    plain_ms = cuda_ms(lambda: cpm.commit_phase(*args, **kw))
+    kernel_graph_ms = graph_ms(lambda: cpm.commit_phase_cuda(*args, **kw))
+    plain_graph_ms = graph_ms(lambda: cpm.commit_phase(*args, **kw))
+    # each input read once, each output written once: [N,P] 6 int32 and
+    # 2 bool in, 4 int32 out; [N] 11 int32 and 3 bool in, 12 int32 and
+    # 2 bool out
+    n_bytes = sum(t.numel() * t.element_size() for t in args) + \
+        n * (4 * 4 * p + 12 * 4 + 2)
+    # two P x P selections, the per-member fold and the lane scalars
+    n_ops = n * (2 * 3 * p * p + 20 * p + 40)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    emit({"phase": "kernels", "kernel": "commit_phase", "checks": checks,
+          "shape": [n, p], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "kernel_graph_ms": kernel_graph_ms,
+          "plain_graph_ms": plain_graph_ms,
+          "bound_ms": bound_ms, "bytes": n_bytes, "ops": n_ops})
+    return {"name": "commit_phase", "route": "cuda",
+            "source": "ra_tpu_torch/ops/csrc/commit_phase.cu",
+            "replaces": "ra_tpu/ops/pallas_quorum.py:47",
+            "also_replaces": "ra_tpu/engine/lockstep.py:450-535",
+            "exact": True,
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "shape": [n, p], "kernel_ms": kernel_ms, "ms": kernel_ms,
+            "plain_ms": plain_ms, "kernel_graph_ms": kernel_graph_ms,
+            "plain_graph_ms": plain_graph_ms, "bound_ms": bound_ms,
+            "bytes": n_bytes, "bound_by": bound_by,
+            # no single PyTorch call computes the commit phase
             "library_ms": None}
 
 
@@ -147,7 +215,7 @@ def assert_same(a, b, aux_a, aux_b, what: str, state_to_numpy) -> None:
             raise AssertionError(f"cuda != cpu at {what}: aux {k}")
 
 
-def phase_parity(pq, LockstepEngine, CounterMachine, state_to_numpy,
+def phase_parity(pq, cpm, LockstepEngine, CounterMachine, state_to_numpy,
                  dev) -> None:
     N, P, steps = 1024, 5, 64
     kw = dict(write_delay=1, max_step_cmds=16, ring_capacity=19,
@@ -192,11 +260,11 @@ def phase_parity(pq, LockstepEngine, CounterMachine, state_to_numpy,
                                          rng.integers(1, Kr + 2, size=N),
                                          0).astype(np.int32)
             step_kw["read_q"] = np.zeros((N, Kr, 1), np.int32)
-        before = pq.LAUNCHES
+        before = cpm.LAUNCHES, pq.LAUNCHES
         aux_g = gpu.step(n_new, payloads, **step_kw)
-        if pq.LAUNCHES != before + 1:
-            raise AssertionError("a cuda step must launch the quorum "
-                                 "kernel exactly once")
+        if (cpm.LAUNCHES, pq.LAUNCHES) != (before[0] + 1, before[1]):
+            raise AssertionError("a cuda step must launch the commit-phase "
+                                 "kernel exactly once and no other")
         launches += 1
         aux_c = cpu.step(n_new, payloads, **step_kw)
         assert_same(gpu, cpu, aux_g, aux_c, f"step {i}", state_to_numpy)
@@ -222,11 +290,11 @@ def phase_parity(pq, LockstepEngine, CounterMachine, state_to_numpy,
           "reads_refused": int(st.read_stale.sum() + st.read_shed.sum())})
 
 
-def phase_main_path(pq, LockstepEngine, CounterMachine, dev,
-                    n_lanes: int = 10_000) -> int:
+def phase_main_path(pq, cpm, LockstepEngine, CounterMachine, dev,
+                    n_lanes: int = 10_000) -> dict:
     N, P, cmds = n_lanes, 5, 128
     warm, timed = 10, 200
-    pq.LAUNCHES = 0
+    pq.LAUNCHES = cpm.LAUNCHES = 0
     eng = LockstepEngine(CounterMachine(), N, P, ring_capacity=1024,
                          max_step_cmds=128, apply_window=130, write_delay=1,
                          device=dev)
@@ -258,18 +326,20 @@ def phase_main_path(pq, LockstepEngine, CounterMachine, dev,
     if not ok.all() or not (replies[:, 0] == lead_value[lanes]).all():
         raise AssertionError("read_lanes did not serve the counters")
     torch.cuda.synchronize()
-    launches = pq.LAUNCHES
+    launches = {"commit_phase": cpm.LAUNCHES,
+                "evaluate_quorum": pq.LAUNCHES}
     steps = eng.pipeline_counters["inner_steps"]
-    if launches != steps:
-        raise AssertionError(f"{launches} quorum-kernel launches in "
-                             f"{steps} main-path steps")
+    if launches != {"commit_phase": steps, "evaluate_quorum": 0}:
+        raise AssertionError(f"kernel launches {launches} in {steps} "
+                             "main-path steps; want one commit_phase a "
+                             "step and no evaluate_quorum")
     emit({"phase": "main_path", "lanes": N, "members": P,
           "cmds_per_step": cmds, "timed_steps": timed,
           "committed_cmds_per_s": (committed1 - committed0) / seconds,
           "ms_per_step": seconds / timed * 1e3,
           "committed_per_lane": want, "leader_counter_ok": True,
           "read_lanes_ok": True, "read_watermark_min": int(wm.min()),
-          "engine_steps": steps, "quorum_kernel_launches": launches,
+          "engine_steps": steps, "kernel_launches": launches,
           "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
     return launches
 
@@ -285,6 +355,7 @@ def main() -> int:
     from ra_tpu_torch.engine import LockstepEngine
     from ra_tpu_torch.models import CounterMachine
     from ra_tpu_torch.ops import _build, quorum
+    from ra_tpu_torch.ops import commit_phase as cpm
     from ra_tpu_torch.ops import pallas_quorum as pq
 
     dev = torch.device("cuda", 0)
@@ -302,13 +373,17 @@ def main() -> int:
           "sources": _build.sources(),
           "ptxas": [ln.strip() for out in logs.values()
                     for ln in out.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+                    if "Compiling entry function" in ln
+                    or "registers" in ln or "spill" in ln]})
 
-    kernel = phase_kernels(pq, quorum, dev)
-    phase_parity(pq, LockstepEngine, CounterMachine, state_to_numpy, dev)
-    kernel["launches"] = phase_main_path(pq, LockstepEngine, CounterMachine,
-                                         dev)
-    emit({"kernels": [kernel]})
+    kernels = [phase_quorum_kernel(pq, quorum, dev),
+               phase_commit_phase_kernel(cpm, dev)]
+    phase_parity(pq, cpm, LockstepEngine, CounterMachine, state_to_numpy,
+                 dev)
+    launches = phase_main_path(pq, cpm, LockstepEngine, CounterMachine, dev)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,10 @@ one ``step`` advances every cluster at once.  Per lane, ``_step`` runs:
   1. leader append into the ``[N,R,C]`` payload ring (with backpressure);
   2. replication under ``pipeline_credit``;
   3. write confirm (``write_delay`` 0 or 1);
-  4. reply fold and the commit quorum — on a CUDA engine one launch of
-     the hand-written kernel (``ops.pallas_quorum``), on the CPU its
-     plain torch version;
-  4a. lease and read registration; 4b. the query quorum;
+  4. reply fold, the commit quorum and the commit broadcast; 4a. lease
+     and read registration; 4b. the query quorum — all three on a CUDA
+     engine one launch of the hand-written fused kernel
+     (``ops.commit_phase``), on the CPU its plain torch version;
   5. the apply fold over the committed window;
   5b. per-lane telemetry; 5c. read serve or refuse.
 
@@ -33,9 +33,8 @@ from ..core.machine import JitMachine
 from ..core.tree import tree_map
 from ..device import DeviceLike, resolve_device
 from ..metrics import ENGINE_PIPELINE_FIELDS, TELEMETRY_FIELDS
-from ..ops.pallas_quorum import evaluate_quorum_dispatch
-from ..ops.quorum import (election_quorum, pipeline_credit, query_quorum,
-                          update_match_next)
+from ..ops.commit_phase import commit_phase_dispatch
+from ..ops.quorum import election_quorum, pipeline_credit
 
 Tensor = torch.Tensor
 I32 = torch.int32
@@ -327,50 +326,23 @@ def _step(state: LaneState, n_new: Tensor, payloads: Tensor,
                                    last_written0)
     last_written = torch.minimum(last_written, last_index)
 
-    # -- 4. reply fold + quorum -------------------------------------------
-    match, _ = update_match_next(match0, next0, active, last_written,
-                                 last_index + 1)
-    next_index = torch.where(active, last_index + 1, next0)
-    leader_commit0 = _take(state.commit, leader_slot)
-    # down members stay in the quorum denominator: a leader that lost a
-    # majority stops committing.  One kernel launch on a CUDA engine.
-    new_leader_commit = evaluate_quorum_dispatch(
-        leader_commit0, match, state.voter, term_start)
-    commit = torch.minimum(new_leader_commit[:, None], last_index)
-    commit = torch.where(active, torch.maximum(commit, state.commit),
-                         state.commit)
-    delta = _take(commit, leader_slot) - leader_commit0
-    total_committed = state.total_committed + delta
-
-    # -- 4a. lease grant/expiry + read-batch registration ------------------
-    read_clock = state.read_clock + 1
-    lease_q = election_quorum(active & state.voter, state.voter)
-    lease_until = torch.where(elect_ok, 0, state.lease_until)
-    lease_until = torch.where(
-        lease_q & leader_up,
-        torch.maximum(lease_until, read_clock + lease_ttl), lease_until)
-    lease_ok = read_clock < lease_until
-
+    # -- 4-4b. reply fold, commit quorum, lease, read registration and the
+    # consistent-query quorum: one kernel launch on a CUDA engine.  Down
+    # members stay in the quorum denominator: a leader that lost a
+    # majority stops committing.
     supports_read = machine.query_spec is not None
     Kr = state.read_buf.shape[1]
-    if supports_read:
-        acc_lane = (n_read > 0) & leader_up & (state.read_n == 0)
-    else:
-        acc_lane = torch.zeros((N,), dtype=torch.bool, device=dev)
-    r_acc = torch.where(acc_lane, torch.clamp(n_read, max=Kr), 0)
-    r_shed_now = n_read - r_acc
-    read_buf = torch.where(acc_lane[:, None, None], read_q, state.read_buf)
-    read_ix = torch.where(acc_lane, leader_commit0, state.read_ix)
-    read_reg = torch.where(acc_lane, read_clock, state.read_reg)
-    read_n1 = torch.where(acc_lane, r_acc, state.read_n)
-
-    # -- 4b. consistent-query heartbeat quorum (plain torch: the reference
-    # computes it outside its Pallas kernel too) ---------------------------
-    query_index = state.query_index + (query_mask | acc_lane).to(I32)
-    read_tok = torch.where(acc_lane, query_index, state.read_tok)
-    peer_q0 = torch.where(elect_ok[:, None], 0, state.peer_query)
-    peer_query = torch.where(active, query_index[:, None], peer_q0)
-    query_agreed = query_quorum(peer_query, state.voter)
+    cp = commit_phase_dispatch(
+        match0, next0, last_index, last_written, state.commit,
+        state.peer_query, active, state.voter, term_start, leader_slot,
+        elect_ok, leader_up, state.total_committed, state.read_clock,
+        state.lease_until, n_read, state.read_n, state.read_ix,
+        state.read_reg, query_mask, state.query_index, state.read_tok,
+        lease_ttl=lease_ttl, Kr=Kr, supports_read=supports_read)
+    commit, read_clock, lease_ok, read_n1 = \
+        cp.commit, cp.read_clock, cp.lease_ok, cp.read_n1
+    read_buf = torch.where(cp.acc_lane[:, None, None], read_q,
+                           state.read_buf)
 
     # -- 5. apply fold over the (lane-uniform) committed window ------------
     applied0 = state.applied
@@ -395,7 +367,7 @@ def _step(state: LaneState, n_new: Tensor, payloads: Tensor,
 
     # -- 5b. per-lane telemetry accumulators -------------------------------
     tel = state.telem
-    leader_commit_new = leader_commit0 + delta
+    leader_commit_new = cp.leader_commit
     lane_applied = torch.where(active, applied, _BIG).amin(dim=-1)
     lane_applied = torch.where(active.any(dim=-1), lane_applied, 0)
     lead_changed = leader_slot != state.leader_slot
@@ -408,7 +380,7 @@ def _step(state: LaneState, n_new: Tensor, payloads: Tensor,
         leader_age=torch.where(lead_changed, 0, tel.leader_age + 1),
         commit_lag=new_leader_last - leader_commit_new,
         apply_lag=leader_commit_new - lane_applied,
-        stall_steps=torch.where((delta > 0) | ~backlog, 0,
+        stall_steps=torch.where((cp.delta > 0) | ~backlog, 0,
                                 tel.stall_steps + 1),
         steps=tel.steps + 1)
 
@@ -416,11 +388,11 @@ def _step(state: LaneState, n_new: Tensor, payloads: Tensor,
     # authority: live lease OR the heartbeat quorum confirmed the batch's
     # token; freshness: the leader applied up to the captured read index
     lead_applied = _take(applied, leader_slot)
-    authority = lease_ok | (query_agreed >= read_tok)
+    authority = lease_ok | (cp.query_agreed >= cp.read_tok)
     can_serve = (read_n1 > 0) & leader_up & authority & \
-        (lead_applied >= read_ix)
+        (lead_applied >= cp.read_ix)
     expired = (read_n1 > 0) & ~can_serve & \
-        (read_clock - read_reg >= read_timeout)
+        (read_clock - cp.read_reg >= read_timeout)
     if supports_read:
         replies = machine.jit_query(
             read_buf, tree_map(lambda x: _take(x, leader_slot), mac))
@@ -430,32 +402,33 @@ def _step(state: LaneState, n_new: Tensor, payloads: Tensor,
     read_done = torch.where(can_serve, read_n1, 0)
     stale_now = torch.where(expired, read_n1, 0)
     read_served = state.read_served + read_done
-    read_shed_tot = state.read_shed + r_shed_now
+    read_shed_tot = state.read_shed + cp.r_shed_now
     read_stale_tot = state.read_stale + stale_now
     read_leased = state.read_leased + \
         torch.where(can_serve & lease_ok, read_n1, 0)
 
     new_state = LaneState(term=term, leader_slot=leader_slot,
                           term_start=term_start, last_index=last_index,
-                          last_written=last_written, match=match,
-                          next_index=next_index, commit=commit,
+                          last_written=last_written, match=cp.match,
+                          next_index=cp.next_index, commit=commit,
                           applied=applied, voter=state.voter, active=active,
                           ring=ring, ring_base=ring_base,
-                          total_committed=total_committed,
-                          query_index=query_index, peer_query=peer_query,
-                          query_agreed=query_agreed,
-                          read_clock=read_clock, lease_until=lease_until,
+                          total_committed=cp.total_committed,
+                          query_index=cp.query_index,
+                          peer_query=cp.peer_query,
+                          query_agreed=cp.query_agreed,
+                          read_clock=read_clock, lease_until=cp.lease_until,
                           read_buf=read_buf,
                           read_n=torch.where(can_serve | expired, 0,
                                              read_n1),
-                          read_ix=read_ix, read_tok=read_tok,
-                          read_reg=read_reg, read_served=read_served,
+                          read_ix=cp.read_ix, read_tok=cp.read_tok,
+                          read_reg=cp.read_reg, read_served=read_served,
                           read_shed=read_shed_tot,
                           read_stale=read_stale_tot,
                           read_leased=read_leased, telem=telem, mac=mac)
     aux = {"appended_hi": new_leader_last, "n_acc": n_acc,
            "n_app": total_app,
-           "read_done": read_done, "read_shed": r_shed_now,
+           "read_done": read_done, "read_shed": cp.r_shed_now,
            "read_stale": stale_now,
            "read_watermark": torch.where(can_serve, lead_applied, -1),
            "read_replies": replies,

@@ -12,10 +12,12 @@
 // The plain torch version is ra_tpu_torch/ops/quorum.py::evaluate_quorum.
 //
 // Design: one thread per lane, 256 threads a block, the ragged edge
-// masked.  A thread holds its lane's masked[16] and voter flags in
-// registers (the loops are fully unrolled over the 16-slot maximum, so
-// every index is a constant) and does the O(P^2) pairwise count there.
-// Lanes are independent: no shared memory, no atomics.
+// masked.  A thread holds its lane's masked[16] and a voter bitmask in
+// registers and runs the selection of quorum_select.cuh unrolled over the
+// 16-slot maximum (every index a constant).  Lanes are independent: no
+// shared memory, no atomics.  The engine's step no longer launches this
+// kernel: commit_phase.cu fuses the same selection into the whole commit
+// phase.  It stays as the counterpart of the public evaluate_quorum API.
 //
 // Bound: memory.  The function must move N*(4P + P + 12) bytes (match
 // int32 and voter uint8 [N,P]; commit, term_start, out int32 [N]):
@@ -23,6 +25,8 @@
 // launch costs more than the bytes, so the kernel is launch-bound; fusing
 // it into a larger step kernel is the way past that.
 #include <cuda_runtime.h>
+
+#include "quorum_select.cuh"
 
 #define RA_MAX_MEMBERS 16
 
@@ -38,28 +42,14 @@ evaluate_quorum_kernel(const int* __restrict__ match,
   const unsigned char* v = voter + (size_t)lane * p;
 
   int masked[RA_MAX_MEMBERS];
-  bool is_voter[RA_MAX_MEMBERS];
-  int n_voters = 0;
+  unsigned voters = 0;
 #pragma unroll
   for (int i = 0; i < RA_MAX_MEMBERS; ++i) {
     const bool vi = i < p && v[i] != 0;
-    is_voter[i] = vi;
+    voters |= vi ? 1u << i : 0u;
     masked[i] = vi ? m[i] : -1;
-    n_voters += vi ? 1 : 0;
   }
-  const int needed = n_voters / 2 + 1;
-
-  int agreed = -1;
-#pragma unroll
-  for (int i = 0; i < RA_MAX_MEMBERS; ++i) {
-    int support = 0;
-#pragma unroll
-    for (int j = 0; j < RA_MAX_MEMBERS; ++j)
-      support += (is_voter[j] && masked[j] >= masked[i]) ? 1 : 0;
-    if (is_voter[i] && support >= needed && masked[i] > agreed)
-      agreed = masked[i];
-  }
-  agreed = agreed > 0 ? agreed : 0;
+  const int agreed = ra_quorum_select<RA_MAX_MEMBERS>(masked, voters);
 
   const int c = commit[lane];
   out[lane] = (agreed > c && agreed >= term_start[lane]) ? agreed : c;

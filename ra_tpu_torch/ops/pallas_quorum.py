@@ -4,11 +4,9 @@ that name so a reader finds the pair).
 
 :func:`evaluate_quorum_cuda` is the checked wrapper around the
 hand-written Hopper kernel in ``csrc/quorum.cu`` (built by ``_build`` on
-first use).  :func:`evaluate_quorum_dispatch` is what the engine calls:
-the plain torch version (``ops.quorum.evaluate_quorum``) for tensors on
-the CPU, the kernel for tensors on a CUDA device, and an error for
-anything else.  There is no fallback from the kernel to the plain
-version.
+first use); its plain version is ``ops.quorum.evaluate_quorum``.  The
+engine's step does not call it: its commit quorum runs inside the fused
+commit-phase kernel (``ops.commit_phase``).
 """
 from __future__ import annotations
 
@@ -16,7 +14,7 @@ import ctypes
 
 import torch
 
-from .quorum import evaluate_quorum
+from ._checks import check_kernel_args
 
 #: largest member count the kernel holds in registers (RA_MAX_MEMBERS)
 MAX_MEMBERS = 16
@@ -55,23 +53,12 @@ def evaluate_quorum_cuda(commit_index: torch.Tensor,
     if not 1 <= P <= MAX_MEMBERS:
         raise ValueError(f"the quorum kernel takes 1..{MAX_MEMBERS} "
                          f"members, got {P}")
-    args = (("commit_index", commit_index, torch.int32, (N,)),
-            ("match_index", match_index, torch.int32, (N, P)),
-            ("voter_mask", voter_mask, torch.bool, (N, P)),
-            ("term_start_index", term_start_index, torch.int32, (N,)))
-    dev = match_index.device
-    for name, t, dtype, shape in args:
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name, t, _dtype, _shape in args:
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"{name} must be on one CUDA device with "
-                             f"match_index, got {t.device}")
+    dev = check_kernel_args(
+        (("commit_index", commit_index, torch.int32, (N,)),
+         ("match_index", match_index, torch.int32, (N, P)),
+         ("voter_mask", voter_mask, torch.bool, (N, P)),
+         ("term_start_index", term_start_index, torch.int32, (N,))),
+        "match_index")
     out = torch.empty((N,), dtype=torch.int32, device=dev)
     if N == 0:
         return out
@@ -86,20 +73,3 @@ def evaluate_quorum_cuda(commit_index: torch.Tensor,
     LAUNCHES += 1
     return out
 
-
-def evaluate_quorum_dispatch(commit_index: torch.Tensor,
-                             match_index: torch.Tensor,
-                             voter_mask: torch.Tensor,
-                             term_start_index: torch.Tensor) -> torch.Tensor:
-    """The engine's commit quorum: the plain version when every input lies
-    on the CPU, the kernel when they lie on a CUDA device, else raise."""
-    devs = {t.device.type for t in (commit_index, match_index, voter_mask,
-                                    term_start_index)}
-    if devs == {"cpu"}:
-        return evaluate_quorum(commit_index, match_index, voter_mask,
-                               term_start_index)
-    if devs == {"cuda"}:
-        return evaluate_quorum_cuda(commit_index, match_index, voter_mask,
-                                    term_start_index)
-    raise ValueError(f"evaluate_quorum_dispatch: inputs on {sorted(devs)}; "
-                     "expected all on the CPU or all on one CUDA device")

@@ -5,10 +5,12 @@
 Drives the main-path engine (CounterMachine, 5 members, ring 1024,
 uniform_step(128), write_delay 1) on CUDA, then traces 20 steps with
 ``torch.profiler`` and prints JSON lines: the card (name and power
-limit from nvidia-smi), the untraced ms/step, and from the trace the
+limit from nvidia-smi), the untraced ms/step, the torch ops one step
+issues on the host (all, and those that are not views), and from the
+trace the
 device-busy ms/step, the device idle share, device kernels per step and
-the kernels that take the most device time (the quorum kernel among
-them).  A trace with no device time prints "not measured" for the
+the kernels that take the most device time, and the fused commit-phase
+kernel's time a launch.  A trace with no device time prints "not measured" for the
 device numbers.  Needs a CUDA device.
 """
 from __future__ import annotations
@@ -19,11 +21,28 @@ import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from .engine import LockstepEngine
 from .models import CounterMachine
 
 LANES, TRACED_STEPS = 10_000, 20
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the aten ops dispatched inside it: ``ops`` all of them,
+    ``views`` those whose result aliases an input."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = self.views = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops += 1
+        self.views += any(r.alias_info is not None and
+                          not r.alias_info.is_write
+                          for r in func._schema.returns)
+        return func(*args, **(kwargs or {}))
 
 
 def main() -> None:
@@ -41,6 +60,8 @@ def main() -> None:
         eng.uniform_step(128)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) / 100 * 1e3
+    with OpCount() as count:
+        eng.uniform_step(128)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -54,7 +75,9 @@ def main() -> None:
     busy_us = sum(e.self_device_time_total for e in rows) / TRACED_STEPS
     out = {"card": card.stdout.strip().splitlines()[0], "lanes": LANES,
            "members": 5, "ms_per_step": plain_ms,
-           "traced_ms_per_step": traced_ms, "traced_steps": TRACED_STEPS}
+           "traced_ms_per_step": traced_ms, "traced_steps": TRACED_STEPS,
+           "host_ops_per_step": count.ops,
+           "host_ops_not_views_per_step": count.ops - count.views}
     if busy_us > 0:
         out.update({
             "device_busy_ms_per_step": busy_us / 1e3,
@@ -69,9 +92,9 @@ def main() -> None:
                  e.count // TRACED_STEPS]
                 for e in sorted(rows, key=lambda e: -e.self_device_time_total)
                 [:10]],
-            "quorum_kernel_ms": [
+            "commit_phase_kernel_ms": [
                 e.self_device_time_total / e.count / 1e3 for e in rows
-                if "evaluate_quorum_kernel" in e.key]})
+                if "commit_phase_kernel" in e.key]})
     else:
         out["device_busy_ms_per_step"] = "not measured"
     print(json.dumps(out), flush=True)

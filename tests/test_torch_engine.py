@@ -16,7 +16,7 @@ from ra_tpu_torch import metrics as port_metrics
 from ra_tpu_torch.convert import state_from_numpy, state_to_numpy
 from ra_tpu_torch.engine import lockstep as port_lockstep
 from ra_tpu_torch.models import CounterMachine
-from ra_tpu_torch.ops import pallas_quorum
+from ra_tpu_torch.ops import commit_phase, pallas_quorum
 
 CONFIGS = {
     # backpressure: the ring holds just max_step_cmds + 3 entries
@@ -30,6 +30,10 @@ CONFIGS = {
         pipeline_window=4, max_append_batch=3, max_step_reads=2,
         lease_ttl=2, read_timeout=5),
         ref_kw=dict(quorum_impl="pallas")),
+    # the commit-phase kernel's widest template: 16 member slots
+    "n40p16_delay1": dict(n=40, p=16, kw=dict(
+        write_delay=1, max_step_cmds=6, ring_capacity=9,
+        max_step_reads=3, lease_ttl=3, read_timeout=6), ref_kw={}),
 }
 
 
@@ -170,9 +174,10 @@ def drive(cfg, steps, seed):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_engine_matches_reference_every_step(name):
     cfg = CONFIGS[name]
-    before = pallas_quorum.LAUNCHES
+    before = pallas_quorum.LAUNCHES, commit_phase.LAUNCHES
     ref, port, elections = drive(cfg, steps=36, seed=len(name))
-    assert pallas_quorum.LAUNCHES == before   # CPU: the plain version
+    # CPU: the plain versions
+    assert (pallas_quorum.LAUNCHES, commit_phase.LAUNCHES) == before
     st = port.state
     # the schedule really exercised what it claims to
     assert elections > 0

@@ -44,7 +44,7 @@ def _reference_ops(commit, match, voter, tstart, nxt, last, ok, sent):
             *ref.pipeline_credit(nxt, match, last, commit, sent, 7, 5))
 
 
-@pytest.mark.parametrize("p", range(1, 16))
+@pytest.mark.parametrize("p", range(1, 17))
 def test_plain_ops_match_reference(p):
     n = 300  # not a multiple of the kernel's 256-lane block
     commit, match, voter, tstart = _case(100 + p, n, p, no_voter_lanes=True)
@@ -83,16 +83,6 @@ def test_plain_matches_pallas_kernel(seed, n, p):
     _same(got, want)
 
 
-def test_dispatch_on_cpu_takes_plain_version():
-    commit, match, voter, tstart = map(torch.from_numpy,
-                                       _case(3, 77, 5, no_voter_lanes=True))
-    before = pq.LAUNCHES
-    got = pq.evaluate_quorum_dispatch(commit, match, voter, tstart)
-    assert pq.LAUNCHES == before
-    assert torch.equal(got, port.evaluate_quorum(commit, match, voter,
-                                                 tstart))
-
-
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     commit, match, voter, tstart = map(torch.from_numpy, _case(4, 40, 5))
     before = pq.LAUNCHES
@@ -108,9 +98,8 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         pq.evaluate_quorum_cuda(commit, match.t().contiguous().t(), voter,
                                 tstart)
-    with pytest.raises(ValueError, match="expected all"):
-        pq.evaluate_quorum_dispatch(commit, match, voter,
-                                    tstart.to("meta"))
+    with pytest.raises(ValueError, match="shape"):
+        pq.evaluate_quorum_cuda(commit[:39], match, voter, tstart)
     assert pq.LAUNCHES == before
 
 
