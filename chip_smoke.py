@@ -23,9 +23,28 @@ non-zero (there is no CPU path and no fallback to a plain version):
              with uniform_step(128): committed cmds/s and ms/step, then
              exact commit, counter and read_lanes checks; commit_phase
              launched once a step, evaluate_quorum never
+  superstep_parity
+             K = 8 a dispatch at (1,024 x 5) and (4,099 x 16), ring 16,
+             8 cmds, apply window 4 (backpressure): the captured-graph
+             superstep against an eager CUDA engine stepped K times and a
+             CPU engine, every LaneState leaf and stacked aux key equal
+             after every dispatch; elections inside dispatches,
+             fail/recover between them, one read block; an aux and a
+             state held from one dispatch unchanged by the next
+  superstep_path
+             the slice at full width: 10,000 x 5 through
+             DispatchAheadDriver(max_in_flight=2) fed host numpy blocks
+             of K = 8 x 128 commands, a TelemetrySampler attached: 2 warm
+             and 25 timed dispatches, ms per inner step, committed
+             cmds/s, window syncs, peak memory and the transfer ledger a
+             dispatch; exact commits, counter, read_lanes and sampler
+             total; no graph capture in the timed window; commit_phase
+             executions counted by name in a torch.profiler window equal
+             to its inner steps; and K = 1 through the same driver
 
-then the kernels summary line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.
+then the kernels summary line (launches on the main path, and on the
+superstep path its host launches, captured launches and profiled
+executions), the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -37,6 +56,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 NON_TENSOR_OPS_PER_S = 67e12   # H100 SXM fp32 outside the tensor cores
@@ -344,6 +364,295 @@ def phase_main_path(pq, cpm, LockstepEngine, CounterMachine, dev,
     return launches
 
 
+def stacked_steps(eng, n_new, pay, **kw) -> dict:
+    """K eager ``step()`` calls, the aux stacked as superstep stacks it;
+    ``kw`` holds superstep's schedule keywords."""
+    from ra_tpu_torch.engine.lockstep import step_watermarks
+    names = {"elect_blk": "elect_mask", "query_blk": "query_mask",
+             "n_read_blk": "n_read", "read_q_blk": "read_q"}
+    auxes = []
+    for j in range(n_new.shape[0]):
+        aux = eng.step(n_new[j], pay[j],
+                       **{names[k]: v[j] for k, v in kw.items()})
+        auxes.append({**aux, **step_watermarks(eng.state)})
+    return {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
+
+
+def host_aux(aux: dict) -> dict:
+    return {k: v.cpu().numpy() for k, v in aux.items()}
+
+
+def assert_arrays(got: dict, want: dict, what: str) -> None:
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: keys {sorted(got)} != {sorted(want)}")
+    for k in want:
+        if got[k].dtype != want[k].dtype or \
+                not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def phase_superstep_parity(cpm, LockstepEngine, CounterMachine,
+                           state_to_numpy, devicewatch, dev) -> None:
+    K = 8
+    kw = dict(write_delay=1, max_step_cmds=8, ring_capacity=16,
+              apply_window=4, max_step_reads=4, lease_ttl=3,
+              read_timeout=6)
+    for N, P in ((1024, 5), (4099, 16)):
+        graph = LockstepEngine(CounterMachine(), N, P, device=dev, **kw)
+        eager = LockstepEngine(CounterMachine(), N, P, device=dev, **kw)
+        cpu = LockstepEngine(CounterMachine(), N, P, device="cpu", **kw)
+        engines = (graph, eager, cpu)
+        rng = np.random.default_rng(N + P)
+        captures0 = devicewatch.WATCH.counters["graph_captures"]
+        failed, held, clipped = [], None, 0
+        dispatches = 5
+        for d in range(dispatches):
+            leader = cpu.state.leader_slot.numpy()
+            heal = [(lane, slot) for lane, slot in failed
+                    if slot != leader[lane]]
+            if heal:
+                lanes, slots = zip(*heal)
+                for e in engines:
+                    e.recover_members(list(lanes), list(slots))
+            # fail the leader of 32 lanes, which elect at inner step 3,
+            # and a follower of 32 more
+            lanes = rng.choice(N, size=64, replace=False)
+            failed = [(int(lane), int(leader[lane])) for lane in lanes[:32]]
+            failed += [(int(lane), (int(leader[lane]) + 1) % P)
+                       for lane in lanes[32:]]
+            for e in engines:
+                for lane, slot in failed:
+                    e.fail_member(lane, slot)
+            n_new = rng.integers(0, 9, (K, N)).astype(np.int32)
+            n_new[:, rng.random(N) < 0.3] = 8        # fill the ring
+            pay = rng.integers(-9, 10, (K, N, 8, 1)).astype(np.int32)
+            elect = np.zeros((K, N), bool)
+            elect[3, lanes[:32]] = True
+            elect[6] = rng.random(N) < 0.05
+            sched = {"elect_blk": elect,
+                     "query_blk": rng.random((K, N)) < 0.2}
+            if d == 2:
+                nr, rq = graph.uniform_read_block(K, 3)
+                sched.update(n_read_blk=nr, read_q_blk=rq)
+            aux_g = graph.superstep(n_new, pay, **sched)
+            aux_e = stacked_steps(eager, n_new, pay, **sched)
+            aux_c = cpu.superstep(n_new, pay, **sched)
+            torch.cuda.synchronize()
+            want = host_aux(aux_c)
+            what = f"superstep ({N}, {P}) dispatch {d}"
+            assert_arrays(host_aux(aux_g), want, what + " graph aux")
+            assert_arrays(host_aux(aux_e), want, what + " eager aux")
+            sc = state_to_numpy(cpu.state)
+            assert_arrays(state_to_numpy(graph.state), sc,
+                          what + " graph state")
+            assert_arrays(state_to_numpy(eager.state), sc,
+                          what + " eager state")
+            if held is not None:
+                # what dispatch d-1 returned is unchanged by dispatch d
+                assert_arrays(host_aux(held[0]), held[1], what + " held aux")
+                assert_arrays(state_to_numpy(held[2]), held[3],
+                              what + " held state")
+            held = (aux_g, host_aux(aux_g), graph.state,
+                    state_to_numpy(graph.state))
+            clipped += int((want["n_acc"] < n_new).sum())
+        st = cpu.state
+        graphs = list(graph._graphs._graphs.values())
+        captured = [g.captured_launches["commit_phase"] for g in graphs]
+        if captured != [K, K] or \
+                devicewatch.WATCH.counters["graph_captures"] - captures0 \
+                != 2:
+            raise AssertionError(f"want two graphs (without and with reads) "
+                                 f"of {K} captured commit_phase launches "
+                                 f"each, got {captured}")
+        if int(st.telem.leader_changes.sum()) == 0 or clipped == 0 or \
+                int(st.read_served.sum()) == 0:
+            raise AssertionError("the superstep schedule moved no leader, "
+                                 "hit no backpressure or served no read")
+        emit({"phase": "superstep_parity", "lanes": N, "members": P,
+              "superstep_k": K, "dispatches": dispatches,
+              "equal_every_dispatch": True, "held_unchanged": True,
+              "graphs": len(graphs), "captured_launches": captured,
+              "graph_held_mb": [g.held_bytes / 2**20 for g in graphs],
+              "leader_changes": int(st.telem.leader_changes.sum()),
+              "backpressure_clipped": clipped,
+              "reads_served": int(st.read_served.sum()),
+              "committed": cpu.committed_total()})
+
+
+def ledger(devicewatch) -> dict:
+    return {site: dict(v) for site, v in devicewatch.WATCH.sites.items()}
+
+
+def phase_superstep_path(pq, cpm, LockstepEngine, CounterMachine,
+                         DispatchAheadDriver, TelemetrySampler, devicewatch,
+                         dev, n_lanes: int = 10_000) -> dict:
+    from ra_tpu_torch.step_profile import device_rows
+    N, P, cmds, K = n_lanes, 5, 128, 8
+    warm, timed, profiled = 2, 25, 3
+    pq.LAUNCHES = cpm.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    eng = LockstepEngine(CounterMachine(), N, P, ring_capacity=1024,
+                         max_step_cmds=cmds, apply_window=130, write_delay=1,
+                         device=dev)
+    sampler = TelemetrySampler(eng)
+    drv = DispatchAheadDriver(eng, max_in_flight=2)
+    # the bench's staged blocks: host numpy, 41 MB of payload a block
+    n_blk = np.broadcast_to(np.full(N, cmds, np.int32), (K, N))
+    p_blk = np.broadcast_to(np.ones((N, cmds, 1), np.int32),
+                            (K, N, cmds, 1))
+    for _ in range(warm):
+        drv.submit(n_blk, p_blk)
+    drv.drain()
+    # the sampler's first sample allocates its pinned host buffers: take
+    # it before the timed window
+    sampler.drain()
+    eng.phases.reset_reservoirs()
+    torch.cuda.synchronize()
+    watch0, sites0 = dict(devicewatch.WATCH.counters), ledger(devicewatch)
+    pc0 = dict(eng.pipeline_counters)
+    committed0, wait0 = eng.committed_total(), drv.window_wait_s
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        drv.submit(n_blk, p_blk)
+    drv.drain()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    window_wait_ms = (drv.window_wait_s - wait0) / timed * 1e3
+    phases = eng.phases.overview()
+    committed1 = eng.committed_total()
+    watch1, sites1 = dict(devicewatch.WATCH.counters), ledger(devicewatch)
+    pc = {k: eng.pipeline_counters[k] - pc0[k] for k in pc0}
+    captures = watch1["graph_captures"] - watch0["graph_captures"]
+    recaptures = watch1["graph_recaptures"] - watch0["graph_recaptures"]
+    if captures or recaptures or pc["superstep_dispatches"] != timed:
+        raise AssertionError(f"timed window: {captures} graph captures, "
+                             f"{recaptures} re-captures, "
+                             f"{pc['superstep_dispatches']} dispatches")
+    per_dispatch = {
+        site: {k: (v - sites0.get(site, {}).get(k, 0)) / timed
+               for k, v in s.items()}
+        for site, s in sites1.items()}
+    # K = 1 through the same driver: one graph replay a step (timed
+    # before the profiler runs in this process)
+    n1, p1 = n_blk[:1], p_blk[:1]
+    for _ in range(warm):
+        drv.submit(n1, p1)
+    drv.drain()
+    torch.cuda.synchronize()
+    c0, steps1 = eng.committed_total(), 100
+    syncs0 = eng.pipeline_counters["window_syncs"]
+    t0 = time.perf_counter()
+    for _ in range(steps1):
+        drv.submit(n1, p1)
+    drv.drain()
+    torch.cuda.synchronize()
+    s1 = time.perf_counter() - t0
+    k1 = {"phase": "superstep_path_k1", "lanes": N, "members": P,
+          "superstep_k": 1, "timed_dispatches": steps1,
+          "ms_per_inner_step": s1 / steps1 * 1e3,
+          "committed_cmds_per_s": (eng.committed_total() - c0) / s1,
+          "window_syncs": eng.pipeline_counters["window_syncs"] - syncs0}
+    # a profiler window: commit_phase executions on the device, by name
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(profiled):
+            drv.submit(n_blk, p_blk)
+        drv.drain()
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t1
+    groups = device_rows(prof)
+    rows = groups["kernels"]
+    executions = sum(e.count for e in rows if "commit_phase_kernel" in e.key)
+    # the dispatch stream's busy time (kernels and device-to-device
+    # copies); the block's host-to-device copy overlaps it on a copy
+    # engine and is reported apart
+    kernel_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    busy_ms = kernel_ms + sum(e.self_device_time_total
+                              for e in groups["copies"]) / 1e3
+    transfer_ms = sum(e.self_device_time_total
+                      for e in groups["transfers"]) / 1e3
+    if executions != profiled * K:
+        raise AssertionError(f"{executions} commit_phase executions in a "
+                             f"profiler window of {profiled * K} inner "
+                             "steps")
+    graph = eng._graphs._graphs[(K, cmds, False)]
+    launches = {"commit_phase": cpm.LAUNCHES,
+                "evaluate_quorum": pq.LAUNCHES}
+    # host launches: for each of the two graphs (K and 1) the warm-up
+    # before its capture, and the capture
+    if graph.captured_launches["commit_phase"] != K or \
+            launches != {"commit_phase": 2 * (K + 1), "evaluate_quorum": 0}:
+        raise AssertionError(f"superstep path launches {launches}, "
+                             f"captured {graph.captured_launches}; want "
+                             f"{K + 1} warm-up and {K + 1} captured "
+                             "commit_phase launches and no evaluate_quorum")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    # settle the last confirms with an empty block, then check
+    drv.submit(np.zeros((K, N), np.int32), p_blk)
+    drv.drain()
+    want = cmds * (K * (warm + timed + profiled) + warm + steps1)
+    per_lane = eng.committed_per_lane()
+    counters = eng.machine_states()
+    lead = eng.state.leader_slot.cpu().numpy()
+    lead_value = counters[np.arange(N), lead]
+    if not (per_lane == want).all() or not (lead_value == want).all():
+        raise AssertionError(
+            f"superstep path: total_committed != {want} on "
+            f"{int((per_lane != want).sum())} lanes, leader counter on "
+            f"{int((lead_value != want).sum())}")
+    if not (drv.last_committed == per_lane).all():
+        raise AssertionError("drain() watermark != total_committed")
+    snap = sampler.drain()
+    if snap["committed_total"] != eng.committed_total() or \
+            snap["stalled_lanes"] != 0:
+        raise AssertionError(f"sampler: committed_total "
+                             f"{snap['committed_total']} (host "
+                             f"{eng.committed_total()}), stalled_lanes "
+                             f"{snap['stalled_lanes']}")
+    lanes = np.linspace(0, N - 1, 64).astype(np.int64)
+    replies, wm, ok = eng.read_lanes(lanes, np.zeros((64, 1), np.int32))
+    if not ok.all() or not (replies[:, 0] == lead_value[lanes]).all():
+        raise AssertionError("read_lanes did not serve the counters")
+    drv.close()
+    emit({"phase": "superstep_path", "lanes": N, "members": P,
+          "superstep_k": K, "cmds_per_step": cmds, "timed_dispatches": timed,
+          "ms_per_inner_step": seconds / (timed * K) * 1e3,
+          "committed_cmds_per_s": (committed1 - committed0) / seconds,
+          "window_syncs": pc["window_syncs"],
+          "window_wait_ms_per_dispatch": window_wait_ms,
+          "dispatches": pc["superstep_dispatches"],
+          "graph_captures_timed": captures, "graph_recaptures": recaptures,
+          "capture_ms": graph.capture_ms,
+          "graph_held_mb": graph.held_bytes / 2**20,
+          "peak_mem_mb": peak_mb,
+          "ledger_per_dispatch": per_dispatch,
+          "profiled_inner_steps": profiled * K,
+          "commit_phase_executions": executions,
+          "traced_ms_per_inner_step": traced_s / (profiled * K) * 1e3,
+          "device_busy_ms_per_inner_step": busy_ms / (profiled * K),
+          "kernel_ms_per_inner_step": kernel_ms / (profiled * K),
+          "transfer_ms_per_inner_step": transfer_ms / (profiled * K),
+          "device_idle_share_traced": 1.0 - busy_ms / (traced_s * 1e3),
+          # the same busy time against the untraced window's inner step
+          "device_idle_share_untraced": 1.0 - busy_ms / (profiled * K) /
+          (seconds / (timed * K) * 1e3),
+          "host_launches": launches,
+          "committed_per_lane": want, "leader_counter_ok": True,
+          "read_lanes_ok": True, "sampler_committed_total":
+          snap["committed_total"], "sampler_stalled_lanes": 0,
+          "phases_ms": {p: {q: phases[p][q] for q in ("p50_ms", "p99_ms",
+                                                      "max_ms")}
+                        for p in ("host_staging", "device_dispatch")}})
+    emit(k1)
+    return {name: {"host_launches": launches[name],
+                   "captured_per_graph": graph.captured_launches[name],
+                   "profiled_executions": sum(
+                       e.count for e in rows if f"{name}_kernel" in e.key),
+                   "profiled_inner_steps": profiled * K}
+            for name in launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -351,9 +660,11 @@ def main() -> int:
         return 1
     # the port comes from the checkout this script sits in: alone in a
     # directory, the script stops here
+    from ra_tpu_torch import devicewatch
     from ra_tpu_torch.convert import state_to_numpy
-    from ra_tpu_torch.engine import LockstepEngine
+    from ra_tpu_torch.engine import DispatchAheadDriver, LockstepEngine
     from ra_tpu_torch.models import CounterMachine
+    from ra_tpu_torch.telemetry import TelemetrySampler
     from ra_tpu_torch.ops import _build, quorum
     from ra_tpu_torch.ops import commit_phase as cpm
     from ra_tpu_torch.ops import pallas_quorum as pq
@@ -381,8 +692,14 @@ def main() -> int:
     phase_parity(pq, cpm, LockstepEngine, CounterMachine, state_to_numpy,
                  dev)
     launches = phase_main_path(pq, cpm, LockstepEngine, CounterMachine, dev)
+    phase_superstep_parity(cpm, LockstepEngine, CounterMachine,
+                           state_to_numpy, devicewatch, dev)
+    ss_launches = phase_superstep_path(
+        pq, cpm, LockstepEngine, CounterMachine, DispatchAheadDriver,
+        TelemetrySampler, devicewatch, dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["launches_superstep_path"] = ss_launches[k["name"]]
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

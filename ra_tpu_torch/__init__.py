@@ -3,8 +3,8 @@
 A second package beside ``ra_tpu`` (the JAX reference, which it never
 imports): thousands of co-hosted Raft clusters advanced as one batched
 step on an NVIDIA H100, with the commit quorum in a hand-written Hopper
-kernel.  Entry points run on the CUDA card unless the caller passes
-``device="cpu"``.  Exports are lazy, so ``import ra_tpu_torch`` loads
+kernel and K steps a dispatch replayed as one CUDA graph.  Entry points
+run on the CUDA card unless the caller passes ``device="cpu"``.  Exports are lazy, so ``import ra_tpu_torch`` loads
 nothing but this file.
 """
 from __future__ import annotations
@@ -16,6 +16,8 @@ __version__ = "0.1.0"
 _EXPORTS = {
     "LockstepEngine": "ra_tpu_torch.engine.lockstep",
     "LaneState": "ra_tpu_torch.engine.lockstep",
+    "DispatchAheadDriver": "ra_tpu_torch.engine.driver",
+    "TelemetrySampler": "ra_tpu_torch.telemetry",
     "CounterMachine": "ra_tpu_torch.models.counter",
     "JitMachine": "ra_tpu_torch.core.machine",
     "resolve_device": "ra_tpu_torch.device",

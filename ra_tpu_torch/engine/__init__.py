@@ -1,5 +1,6 @@
+from .driver import DispatchAheadDriver
 from .lockstep import (CHECKPOINT_FIELD_DEFAULTS, LaneState, LaneTelemetry,
-                       LockstepEngine)
+                       LockstepEngine, telemetry_summary_fn)
 
-__all__ = ["CHECKPOINT_FIELD_DEFAULTS", "LaneState", "LaneTelemetry",
-           "LockstepEngine"]
+__all__ = ["CHECKPOINT_FIELD_DEFAULTS", "DispatchAheadDriver", "LaneState",
+           "LaneTelemetry", "LockstepEngine", "telemetry_summary_fn"]

@@ -15,26 +15,41 @@ one ``step`` advances every cluster at once.  Per lane, ``_step`` runs:
   5. the apply fold over the committed window;
   5b. per-lane telemetry; 5c. read serve or refuse.
 
+``superstep`` runs K rounds in one dispatch (``_superstep``, the
+reference's ``lax.scan``): on a CUDA engine one replay of a captured CUDA
+graph of the K steps (``engine/graph.py``), on the CPU a plain loop.
+``DispatchAheadDriver`` (``engine/driver.py``) stages the next block
+while the device runs the current one, and ``TelemetrySampler``
+(``telemetry.py``) rides the same dispatch loop.
+
 Every tensor keeps the reference's dtype (int32 or bool), and the state
-after every step equals the JAX engine's on the same inputs
-(``tests/test_torch_engine.py``).  ``step`` never reads the device back:
-host masks are numpy data copied to the device.  The durable engine,
-superstep and the sequential-machine apply path are not ported yet.
+after every step and dispatch equals the JAX engine's on the same inputs
+(``tests/test_torch_engine.py``, ``tests/test_torch_superstep.py``).
+``step`` and ``superstep`` never read the device back and never wait
+on it: host masks are numpy data, copied to the device from pinned
+memory without blocking.  The durable engine and the
+sequential-machine apply path are not ported yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import devicewatch
 from ..convert import state_from_numpy, state_to_numpy
 from ..core.machine import JitMachine
 from ..core.tree import tree_map
 from ..device import DeviceLike, resolve_device
 from ..metrics import ENGINE_PIPELINE_FIELDS, TELEMETRY_FIELDS
+from ..ops import commit_phase, pallas_quorum
 from ..ops.commit_phase import commit_phase_dispatch
 from ..ops.quorum import election_quorum, pipeline_credit
+from ..readback import Readback
+from ..telemetry import PhaseStats
+from .graph import GraphCache
 
 Tensor = torch.Tensor
 I32 = torch.int32
@@ -438,6 +453,101 @@ def _step(state: LaneState, n_new: Tensor, payloads: Tensor,
     return new_state, aux
 
 
+def _superstep(state: LaneState, n_new_blk: Tensor, payloads_blk: Tensor,
+               fail_mask: Tensor, elect_blk: Tensor, query_blk: Tensor,
+               n_read_blk: Tensor, read_q_blk: Tensor, **step_kwargs):
+    """K lockstep rounds: the reference's ``lax.scan`` over ``_step``
+    (``ra_tpu/engine/lockstep.py::_superstep``) as a loop of K steps.
+    The schedule has a leading ``[K]`` axis (``n_new_blk`` [K,N],
+    ``payloads_blk`` [K,N,Kc,C], elect/query masks [K,N], ``n_read_blk``
+    [K,N], ``read_q_blk`` [K,N,Kr,Cq]); the fail mask is constant for
+    the dispatch.  Returns ``(new_state, aux)`` with every aux leaf
+    stacked on a leading ``[K]`` axis, plus two watermarks per inner
+    step: ``committed_lanes`` (cumulative committed per lane) and
+    ``applied_lanes`` (the lane apply frontier over active members, 0
+    for a lane with none).  Pure, with no host sync: on a CUDA engine it
+    is captured as one graph."""
+    auxes = []
+    for j in range(n_new_blk.shape[0]):
+        state, aux = _step(state, n_new_blk[j], payloads_blk[j], fail_mask,
+                           elect_blk[j], query_blk[j], n_read_blk[j],
+                           read_q_blk[j], **step_kwargs)
+        auxes.append({**aux, **step_watermarks(state)})
+    return state, {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
+
+
+def step_watermarks(state: LaneState) -> dict:
+    """The two watermarks ``_superstep`` adds to each inner step's aux:
+    ``committed_lanes`` (cumulative committed per lane) and
+    ``applied_lanes`` (the lowest ``applied`` over a lane's active
+    members, 0 for a lane with none), int32[N] each."""
+    applied = torch.where(state.active, state.applied, _BIG).amin(dim=-1)
+    return {"committed_lanes": state.total_committed,
+            "applied_lanes": torch.where(state.active.any(dim=-1),
+                                         applied, 0)}
+
+
+def _telemetry_summary(telem: LaneTelemetry, total_committed: Tensor,
+                       reads: tuple, *, top_k: int, hist_buckets: int,
+                       stall_threshold: int) -> dict:
+    """Aggregate the per-lane telemetry on the device into a fixed-size
+    snapshot (``metrics.TELEMETRY_SUMMARY_FIELDS``): scalar rollups, a
+    log2-bucket commit-lag histogram and the ``top_k`` offender lanes.
+    Its size does not depend on the lane count, so the sampler's
+    readback is a few hundred bytes.  The dtypes are the reference's:
+    float32 sums and means, int32 counts and lane ids.  ``torch.topk``
+    breaks ties otherwise than ``lax.top_k``: lanes of equal score may
+    come in another order."""
+    f32, i32 = torch.float32, torch.int32
+    lag = telem.commit_lag
+    stalled = telem.stall_steps >= stall_threshold
+    # any stalled lane outranks any merely laggy one; both parts are
+    # clipped so that the packed int32 score cannot overflow
+    score = (torch.clamp(telem.stall_steps, 0, (1 << 15) - 1) * (1 << 15)
+             + torch.clamp(lag + telem.apply_lag, 0, (1 << 15) - 1))
+    top_idx = torch.topk(score, top_k).indices
+    # bucket b holds lags in [2^(b-1), 2^b) (bucket 0: lag 0); the last
+    # bucket takes the tail
+    bucket = torch.clamp(
+        torch.ceil(torch.log2(torch.clamp(lag, min=0).to(f32) + 1.0))
+        .to(i32), 0, hist_buckets - 1)
+    hist = (bucket[:, None] == torch.arange(hist_buckets,
+                                            device=lag.device)[None, :]
+            ).sum(dim=0, dtype=i32)
+    return {
+        "steps": telem.steps.amax(),
+        "elections_requested": telem.elections_requested.to(f32).sum(),
+        "elections_won": telem.elections_won.to(f32).sum(),
+        "leader_changes": telem.leader_changes.to(f32).sum(),
+        "stalled_lanes": stalled.sum(dtype=i32),
+        "commit_lag_max": lag.amax(),
+        "commit_lag_mean": lag.to(f32).mean(),
+        "apply_lag_max": telem.apply_lag.amax(),
+        "apply_lag_mean": telem.apply_lag.to(f32).mean(),
+        "leader_age_min": telem.leader_age.amin(),
+        "commit_lag_hist": hist,
+        "top_lanes": top_idx.to(i32),
+        "top_commit_lag": lag[top_idx],
+        "top_apply_lag": telem.apply_lag[top_idx],
+        "top_stall_steps": telem.stall_steps[top_idx],
+        # float32, as the reference: the node-wide sum can pass int32
+        "committed_total": total_committed.to(f32).sum(),
+        "read_served_total": reads[0].to(f32).sum(),
+        "read_shed_total": reads[1].to(f32).sum(),
+        "read_stale_total": reads[2].to(f32).sum(),
+        "read_leased_total": reads[3].to(f32).sum(),
+    }
+
+
+def telemetry_summary_fn(top_k: int = 8, hist_buckets: int = 16,
+                         stall_threshold: int = 8):
+    """``_telemetry_summary`` with its aggregation geometry bound:
+    ``fn(telem, total_committed, (served, shed, stale, leased))``."""
+    return functools.partial(_telemetry_summary, top_k=top_k,
+                             hist_buckets=hist_buckets,
+                             stall_threshold=stall_threshold)
+
+
 def _dtype(name: str) -> torch.dtype:
     """The torch dtype of a machine spec's dtype name (e.g. "int32")."""
     return getattr(torch, np.dtype(name).name)
@@ -507,6 +617,14 @@ class LockstepEngine:
                                  read_timeout=self.read_timeout)
         #: host-side dispatch bookkeeping (ENGINE_PIPELINE_FIELDS)
         self.pipeline_counters = {f: 0 for f in ENGINE_PIPELINE_FIELDS}
+        #: host-side latency stamps of the dispatch path (PHASE_FIELDS)
+        self.phases = PhaseStats()
+        self._superstep_k_last = 0
+        self._driver = None     # the attached DispatchAheadDriver
+        self._telemetry = None  # the attached TelemetrySampler
+        #: one captured graph of ``_superstep`` per (K, Kc, reads)
+        self._graphs = GraphCache() \
+            if self.device.type == "cuda" else None
         dev = self.device
         self._zero_fail = torch.zeros((n_lanes, n_members), dtype=torch.bool,
                                       device=dev)
@@ -522,8 +640,28 @@ class LockstepEngine:
 
     def _dev(self, x, dtype: torch.dtype) -> Tensor:
         """Host data (numpy, lists) or a tensor, as ``dtype`` on the
-        engine's device."""
-        return torch.as_tensor(x).to(device=self.device, dtype=dtype)
+        engine's device.  Host data goes to a card through a pinned copy
+        with ``non_blocking=True``: a copy from pageable memory would make
+        the host wait for all work already queued on the stream (the
+        caching host allocator keeps the pinned block until its copy has
+        run)."""
+        t = torch.as_tensor(x, dtype=dtype)
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            t = torch.empty(t.shape, dtype=dtype, pin_memory=True).copy_(t)
+        return t.to(self.device, non_blocking=True)
+
+    def _host_mask(self, mask):
+        """A HOST-side mask (election requests come from the host failure
+        detector) on the device, and whether any lane is set, computed on
+        the host (the durable engine drains its WAL after a dispatch that
+        elected).  A CUDA tensor is refused: reading it here would be the
+        device sync this helper exists to avoid."""
+        arr = np.asarray(mask)  # ra02-ok: host data by contract; numpy refuses a CUDA tensor
+        return self._dev(arr, torch.bool), bool(arr.any())
+
+    def _fail_mask(self) -> Tensor:
+        return (self._dev(self._fail_host, torch.bool)
+                if self._fail_host.any() else self._zero_fail)
 
     def step(self, n_new, payloads, elect_mask=None, query_mask=None,
              n_read=None, read_q=None) -> dict:
@@ -531,10 +669,9 @@ class LockstepEngine:
         [N, K, C] with K <= max_step_cmds.  Masks (bool[N]) are host data.
         ``n_read``/``read_q`` (int32[N], [N, Kr, Cq]) register
         consistent-read batches.  Returns the step aux (device tensors)."""
-        fail = (self._dev(self._fail_host, torch.bool)
-                if self._fail_host.any() else self._zero_fail)
+        fail = self._fail_mask()
         elect = self._zero_elect if elect_mask is None \
-            else self._dev(elect_mask, torch.bool)
+            else self._host_mask(elect_mask)[0]
         query = self._zero_elect if query_mask is None \
             else self._dev(query_mask, torch.bool)
         nr = self._zero_nread if n_read is None else self._dev(n_read, I32)
@@ -546,7 +683,83 @@ class LockstepEngine:
                                 self._dev(payloads, self.payload_dtype),
                                 fail, elect, query, nr, rq,
                                 **self._step_kwargs)
+        if self._telemetry is not None:
+            # after the dispatch, never blocking: the sampler only starts
+            # device work and copies here
+            self._telemetry.tick(1)
         return aux
+
+    def superstep(self, n_new_blk, payloads_blk, elect_blk=None,
+                  query_blk=None, n_read_blk=None,
+                  read_q_blk=None) -> dict:
+        """Advance every lane K rounds in one dispatch.  Inputs carry a
+        leading inner-step axis: ``n_new_blk`` int32[K, N];
+        ``payloads_blk`` [K, N, Kc, C]; optional elect/query schedules
+        bool[K, N] (host data) for elections and queries inside the
+        dispatch; ``n_read_blk``/``read_q_blk`` ([K, N], [K, N, Kr, Cq])
+        a read schedule.  The fail mask is sampled once per dispatch.
+
+        On a CUDA engine this is one replay of the CUDA graph captured
+        for ``(K, Kc, reads)`` (captured on first use; the commit-phase
+        kernel runs K times inside it), on the CPU a loop of K steps.
+        Returns the stacked per-inner-step aux (device tensors, a leading
+        [K] axis on every leaf); ``committed_lanes`` [K, N] is the
+        cumulative committed watermark after each inner step."""
+        n_new = self._dev(n_new_blk, I32)
+        payloads = self._dev(payloads_blk, self.payload_dtype)
+        k, N = n_new.shape[0], self.n_lanes
+        fail = self._fail_mask()
+        elect = self._zero_elect.expand(k, N) if elect_blk is None \
+            else self._host_mask(elect_blk)[0]
+        query = self._zero_elect.expand(k, N) if query_blk is None \
+            else self._dev(query_blk, torch.bool)
+        reads = n_read_blk is not None or read_q_blk is not None
+        nr = self._dev(n_read_blk, I32) if n_read_blk is not None \
+            else self._zero_nread.expand(k, N)
+        rq = self._dev(read_q_blk, self.query_dtype) \
+            if read_q_blk is not None \
+            else self._zero_readq.expand((k,) + self._zero_readq.shape)
+        self.pipeline_counters["dispatches"] += 1
+        self.pipeline_counters["superstep_dispatches"] += 1
+        self.pipeline_counters["inner_steps"] += k
+        self._superstep_k_last = k
+        if self._graphs is None:
+            self.state, aux = _superstep(self.state, n_new, payloads, fail,
+                                         elect, query, nr, rq,
+                                         **self._step_kwargs)
+        else:
+            self.state, aux = self._graph_superstep(
+                n_new, payloads, fail, elect, query, nr, rq, reads)
+        if self._telemetry is not None:
+            self._telemetry.tick(k)
+        return aux
+
+    def _graph_superstep(self, n_new, payloads, fail, elect, query, nr, rq,
+                         reads: bool):
+        """``_superstep`` as one replay of its captured CUDA graph.
+        Without reads the zero read schedule is part of the graph, not an
+        input copied in every dispatch."""
+        kw = self._step_kwargs
+        args = (self.state, n_new, payloads, fail, elect, query)
+        if reads:
+            args += (nr, rq)
+
+            def fn(*a):
+                return _superstep(*a, **kw)
+        else:
+            def fn(*a):
+                return _superstep(*a, nr, rq, **kw)
+        k = n_new.shape[0]
+        g = self._graphs.get(
+            (k, payloads.shape[2], reads), fn, args, self.device,
+            lambda: {"commit_phase": commit_phase.LAUNCHES,
+                     "evaluate_quorum": pallas_quorum.LAUNCHES})
+        if g.captured_launches["commit_phase"] != k:
+            raise RuntimeError(
+                f"the superstep graph captured "
+                f"{g.captured_launches['commit_phase']} commit-phase "
+                f"launches for {k} inner steps")
+        return g(*args)
 
     def uniform_step(self, cmds_per_lane: int, payload_value=1) -> dict:
         """Every lane's leader receives the same number of commands this
@@ -557,6 +770,31 @@ class LockstepEngine:
         payloads = torch.full((N, K, C), payload_value,
                               dtype=self.payload_dtype, device=self.device)
         return self.step(n_new, payloads)
+
+    def uniform_superstep(self, k: int, cmds_per_lane: int,
+                          payload_value=1) -> dict:
+        """One dispatch of ``k`` rounds, every lane's leader receiving the
+        same command count each round."""
+        N, K, C = self.n_lanes, self.max_step_cmds, self.payload_width
+        n_new = torch.full((k, N), min(cmds_per_lane, K), dtype=I32,
+                           device=self.device)
+        payloads = torch.full((k, N, K, C), payload_value,
+                              dtype=self.payload_dtype, device=self.device)
+        return self.superstep(n_new, payloads)
+
+    def uniform_read_block(self, k: int, reads_per_lane: int,
+                           query_value=0):
+        """A ``(n_read_blk, read_q_blk)`` superstep read schedule (host
+        numpy) registering one uniform batch of ``reads_per_lane``
+        queries per lane at inner step 0 (a lane holds one pending batch
+        at a time, so batches at later inner steps would only shed)."""
+        N, Kr, Cq = self.n_lanes, self.read_window, self.query_width
+        n_read = np.zeros((k, N), np.int32)
+        n_read[0] = min(int(reads_per_lane), Kr)
+        qdtype = np.dtype(self.machine.query_spec[0]) \
+            if self.reads_enabled else np.int32
+        read_q = np.full((k, N, Kr, Cq), query_value, qdtype)
+        return n_read, read_q
 
     def _empty_step(self, **kw) -> dict:
         N, K, C = self.n_lanes, self.max_step_cmds, self.payload_width
@@ -783,8 +1021,22 @@ class LockstepEngine:
     def committed_per_lane(self) -> np.ndarray:
         return self.state.total_committed.cpu().numpy()
 
+    def committed_lanes_async(self) -> Readback:
+        """Per-lane cumulative committed counts with the host copy already
+        in flight: poll ``.is_ready()``, then ``np.asarray`` it.  The next
+        ``step`` can be dispatched at once."""
+        h = Readback(self.state.total_committed)
+        # the transfer ledger counts the copy when it starts
+        devicewatch.record_d2h("lanes_async", h.nbytes)
+        return h
+
     def machine_states(self) -> Any:
         return tree_map(lambda x: x.cpu().numpy(), self.state.mac)
+
+    def block_until_ready(self) -> None:
+        """Wait until the device has finished everything dispatched."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def overview(self, lane: int = 0) -> dict:
         s = self.state
@@ -799,8 +1051,16 @@ class LockstepEngine:
             "total_committed": int(s.total_committed[lane]),
             "device": str(self.device),
         }
-        out["pipeline"] = {"cmds_per_step": self.max_step_cmds,
-                           **self.pipeline_counters}
+        # the dispatch pipeline: the last fused K, the attached driver's
+        # stage-ahead depth and live in-flight count, and the counters
+        drv = self._driver
+        out["pipeline"] = {
+            "superstep_k": self._superstep_k_last,
+            "cmds_per_step": self.max_step_cmds,
+            "dispatch_ahead": drv.max_in_flight if drv is not None else 0,
+            "dispatches_in_flight": drv.in_flight() if drv is not None
+            else 0,
+            **self.pipeline_counters}
         if self.reads_enabled:
             def tot(x):
                 return int(x.cpu().numpy().astype(np.int64).sum())
