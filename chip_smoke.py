@@ -41,24 +41,65 @@ non-zero (there is no CPU path and no fallback to a plain version):
              total; no graph capture in the timed window; commit_phase
              executions counted by name in a torch.profiler window equal
              to its inner steps; and K = 1 through the same driver
+  wal_disk   the WAL plane alone on build/'s filesystem (its type and free
+             space, native or Python I/O, MB/s, fsync p50 and records per
+             fsync: ra_tpu_torch/wal_probe.py)
+  durable_parity
+             durable engines (open_engine, 2 WAL shards, real fsync) at
+             (1,024 x 5) and (4,099 x 16), K = 8, with a barrier before
+             each dispatch: the graph superstep on the card, the same K
+             steps run eagerly on the card and a CPU engine, every leaf,
+             stacked aux key and ENGINE_WAL counter equal after every
+             dispatch, elections inside dispatches; byte-equal WAL blocks;
+             then each reopens on its own device and the recovered leaves
+             are equal
+  durable_path
+             the durable engine at full width: 10,000 x 5, 128 commands a
+             lane a step, wal_shards = min(4, cores / 2), sync_mode 1,
+             max_pending 32, through DispatchAheadDriver at K = 8: 2 warm
+             and 25 timed dispatches (the tracer on), ms per inner step
+             and committed cmds/s beside the volatile superstep_path's,
+             fsyncs, records per fsync, fsync p50, WAL MB/s, readback
+             bytes against the full batch's, backpressure waits, window
+             syncs; a profiler window; commit <= confirm_upto at sampled
+             dispatches; after flush_all and settle exact commits,
+             counters and WAL counters; a checkpoint, a WAL tail, close
+             and open_engine on the card (replay timed), the recovered
+             leaves equal those before the close, and a checkpoint-only
+             reopen equal on every leaf; the WAL directory under build/
+             removed
+  durable_diagnosis
+             durable_path's timed loop again with fdatasync and without
+             (sync_mode 1 and 0), each with the CPU ms of each thread
+             group a dispatch, the tracer's spans and a 1 ms sleeper's
+             lateness (how long other threads hold the interpreter lock):
+             which of the disk and the host sets the pace
 
-then the kernels summary line (launches on the main path, and on the
+then the kernels summary line (launches on the main path, on the
 superstep path its host launches, captured launches and profiled
-executions), the nvidia-smi line, and last {"ok": true, "device": {...}}.
+executions, and on the durable path), the nvidia-smi line, and last
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+#: durable phases write their WAL here: a real disk, never tmpfs
+WAL_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_wal"
 NON_TENSOR_OPS_PER_S = 67e12   # H100 SXM fp32 outside the tensor cores
 
 
@@ -576,7 +617,7 @@ def phase_superstep_path(pq, cpm, LockstepEngine, CounterMachine,
         raise AssertionError(f"{executions} commit_phase executions in a "
                              f"profiler window of {profiled * K} inner "
                              "steps")
-    graph = eng._graphs._graphs[(K, cmds, False)]
+    graph = eng._graphs._graphs[(K, cmds, False, False)]
     launches = {"commit_phase": cpm.LAUNCHES,
                 "evaluate_quorum": pq.LAUNCHES}
     # host launches: for each of the two graphs (K and 1) the warm-up
@@ -615,6 +656,8 @@ def phase_superstep_path(pq, cpm, LockstepEngine, CounterMachine,
     if not ok.all() or not (replies[:, 0] == lead_value[lanes]).all():
         raise AssertionError("read_lanes did not serve the counters")
     drv.close()
+    volatile = {"ms_per_inner_step": seconds / (timed * K) * 1e3,
+                "committed_cmds_per_s": (committed1 - committed0) / seconds}
     emit({"phase": "superstep_path", "lanes": N, "members": P,
           "superstep_k": K, "cmds_per_step": cmds, "timed_dispatches": timed,
           "ms_per_inner_step": seconds / (timed * K) * 1e3,
@@ -645,12 +688,482 @@ def phase_superstep_path(pq, cpm, LockstepEngine, CounterMachine,
                                                       "max_ms")}
                         for p in ("host_staging", "device_dispatch")}})
     emit(k1)
-    return {name: {"host_launches": launches[name],
+    return volatile, {name: {"host_launches": launches[name],
                    "captured_per_graph": graph.captured_launches[name],
                    "profiled_executions": sum(
                        e.count for e in rows if f"{name}_kernel" in e.key),
                    "profiled_inner_steps": profiled * K}
             for name in launches}
+
+
+# -- the durable engine ------------------------------------------------------
+
+#: the leaves a recovery replays to (everything but the per-step clocks
+#: and telemetry, which count the replay's own steps)
+CORE_LEAVES = ("term", "leader_slot", "term_start", "last_index",
+               "last_written", "commit", "applied", "total_committed",
+               "voter", "active", "mac")
+
+
+def wal_blocks(data_dir: str, scan_wal_file) -> dict:
+    """Every engine block on disk: {(shard dir, step): block bytes}."""
+    out = {}
+    for root, _dirs, names in os.walk(data_dir):
+        tables: dict = {}
+        for name in sorted(n for n in names if n.endswith(".wal")):
+            scan_wal_file(os.path.join(root, name), tables)
+        for step, (_term, blk) in tables.get("__engine__", {}).items():
+            out[(os.path.relpath(root, data_dir), step)] = blk
+    return out
+
+
+def core(state, state_to_numpy) -> dict:
+    return {k: v for k, v in state_to_numpy(state).items()
+            if k.split(":")[0] in CORE_LEAVES}
+
+
+def phase_wal_disk() -> dict:
+    from ra_tpu_torch.wal_probe import probe
+    out = probe(str(WAL_ROOT / "probe"),
+                max(1, min(4, (os.cpu_count() or 2) // 2)))
+    emit({"phase": "wal_disk", **out})
+    return out
+
+
+def phase_durable_parity(cpm, CounterMachine, open_engine, state_to_numpy,
+                         scan_wal_file, dev) -> None:
+    K = 8
+    kw = dict(max_step_cmds=8, ring_capacity=16, apply_window=4,
+              max_step_reads=4, lease_ttl=3, read_timeout=6, sync_mode=1,
+              max_pending=64, wal_shards=2)
+    for N, P in ((1024, 5), (4099, 16)):
+        root = WAL_ROOT / f"parity_{N}_{P}"
+        shutil.rmtree(root, ignore_errors=True)
+        names = ("graph", "eager", "cpu")
+        devs = (dev, dev, "cpu")
+
+        def open_all():
+            return [open_engine(CounterMachine(), str(root / name), N, P,
+                                device=d, **kw)
+                    for name, d in zip(names, devs)]
+        engines = open_all()
+        engines[1]._graphs = None         # _superstep's eager K-step loop
+        cpu = engines[2]
+        rng = np.random.default_rng(N + P + 1)
+        failed, launches0 = [], cpm.LAUNCHES
+        for d in range(5):
+            leader = cpu.state.leader_slot.numpy()
+            heal = [(lane, slot) for lane, slot in failed
+                    if slot != leader[lane]]
+            if heal:
+                lanes, slots = zip(*heal)
+                for e in engines:
+                    e.recover_members(list(lanes), list(slots))
+            lanes = rng.choice(N, size=64, replace=False)
+            failed = [(int(lane), int(leader[lane])) for lane in lanes[:32]]
+            failed += [(int(lane), (int(leader[lane]) + 1) % P)
+                       for lane in lanes[32:]]
+            for e in engines:
+                for lane, slot in failed:
+                    e.fail_member(lane, slot)
+            n_new = rng.integers(0, 9, (K, N)).astype(np.int32)
+            n_new[:, rng.random(N) < 0.3] = 8
+            pay = rng.integers(-9, 10, (K, N, 8, 1)).astype(np.int32)
+            elect = np.zeros((K, N), bool)
+            elect[3, lanes[:32]] = True
+            elect[6] = rng.random(N) < 0.05
+            for e in engines:                   # the same confirms
+                e._dur.flush_all()
+            auxes = [e.superstep(n_new, pay, elect_blk=elect)
+                     for e in engines]
+            torch.cuda.synchronize()
+            for e in engines:
+                e._dur.flush_all()
+            want = state_to_numpy(cpu.state)
+            want_aux = host_aux(auxes[2])
+            for e, aux, name in zip(engines, auxes, names):
+                what = f"durable ({N}, {P}) dispatch {d} {name}"
+                assert_arrays(state_to_numpy(e.state), want, what)
+                assert_arrays(host_aux(aux), want_aux, what + " aux")
+                if e._dur.counters != cpu._dur.counters:
+                    raise AssertionError(f"{what}: WAL counters "
+                                         f"{e._dur.counters} != "
+                                         f"{cpu._dur.counters}")
+        eager_launches = cpm.LAUNCHES - launches0
+        st = cpu.state
+        committed = cpu.committed_total()
+        counters = dict(cpu._dur.counters)
+        for e in engines:
+            e.close()
+        blocks = [wal_blocks(str(root / name), scan_wal_file)
+                  for name in names]
+        if not blocks[2] or any(b != blocks[2] for b in blocks[:2]):
+            raise AssertionError(f"durable ({N}, {P}): WAL blocks differ")
+        t0 = time.perf_counter()
+        engines = open_all()
+        reopen_s = time.perf_counter() - t0
+        want = state_to_numpy(engines[2].state)
+        for e, name in zip(engines, names):
+            assert_arrays(state_to_numpy(e.state), want,
+                          f"durable ({N}, {P}) reopened {name}")
+        for e in engines:
+            e.close()
+        shutil.rmtree(root, ignore_errors=True)
+        if int(st.telem.leader_changes.sum()) == 0 or committed == 0:
+            raise AssertionError("the durable schedule moved no leader or "
+                                 "committed nothing")
+        emit({"phase": "durable_parity", "lanes": N, "members": P,
+              "superstep_k": K, "dispatches": 5, "wal_shards": 2,
+              "equal_every_dispatch": True, "wal_blocks_equal": True,
+              "wal_blocks": len(blocks[2]), "recovered_equal": True,
+              "reopen_s_three_engines": reopen_s,
+              "eager_commit_phase_launches": eager_launches,
+              "leader_changes": int(st.telem.leader_changes.sum()),
+              "committed": committed, "wal_counters": counters})
+
+
+def wal_totals(eng) -> dict:
+    ov = eng._dur.wal_overview()
+    out = {k: sum(s[k] for s in ov["shards"])
+           for k in ("syncs", "writes", "bytes_written", "sync_time_us",
+                     "batches")}
+    out.update(ov["engine"])
+    out["fsync_p50_ms"] = statistics.median(s["fsync_p50_ms"]
+                                            for s in ov["shards"])
+    out["fsync_p99_ms"] = max(s["fsync_p99_ms"] for s in ov["shards"])
+    return out
+
+
+def settle_durable(eng, cmds: int, limit: int = 64) -> int:
+    """Empty single steps behind a durability barrier until every lane's
+    leader has committed and applied its whole log; returns the steps."""
+    N = eng.n_lanes
+    zn, zp = np.zeros(N, np.int32), np.zeros((N, cmds, 1), np.int32)
+    lane = np.arange(N)
+    for i in range(limit):
+        eng._dur.flush_all()
+        st = eng.state
+        lead = st.leader_slot.cpu().numpy()
+        tail = st.last_index.cpu().numpy()[lane, lead]
+        com = st.commit.cpu().numpy()[lane, lead]
+        app = st.applied.cpu().numpy().min(axis=1)
+        if (com == tail).all() and (app == tail).all() and i:
+            return i
+        eng.step(zn, zp)
+    raise AssertionError("the durable engine did not settle")
+
+
+def phase_durable_path(pq, cpm, CounterMachine, DispatchAheadDriver,
+                       open_engine, trace, state_to_numpy, dev,
+                       volatile: dict, n_lanes: int = 10_000) -> dict:
+    from ra_tpu_torch.engine.durable import _BLK, _BLK2
+    from ra_tpu_torch.log import faults
+    from ra_tpu_torch.step_profile import device_rows
+    from ra_tpu_torch.wal_probe import fs_info
+    N, P, cmds, K = n_lanes, 5, 128, 8
+    warm, timed, profiled, sampled, tail = 2, 25, 3, 4, 3
+    shards = max(1, min(4, (os.cpu_count() or 2) // 2))
+    root = WAL_ROOT / "path"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    fs = fs_info(str(root))
+    kw = dict(wal_shards=shards, sync_mode=1, max_pending=32,
+              ring_capacity=1024, max_step_cmds=cmds, apply_window=130)
+    pq.LAUNCHES = cpm.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    eng = open_engine(CounterMachine(), str(root), N, P, device=dev, **kw)
+    io_native = faults.IO._base.native      # native library or fallback
+    drv = DispatchAheadDriver(eng, max_in_flight=2)
+    n_blk = np.broadcast_to(np.full(N, cmds, np.int32), (K, N))
+    p_blk = np.broadcast_to(np.ones((N, cmds, 1), np.int32),
+                            (K, N, cmds, 1))
+    for _ in range(warm):
+        drv.submit(n_blk, p_blk)
+    drv.drain()
+    eng._dur.flush_all()
+    torch.cuda.synchronize()
+    w0, pc0 = wal_totals(eng), dict(eng.pipeline_counters)
+    committed0, wait0 = eng.committed_total(), drv.window_wait_s
+    tracer = trace.Tracer()
+    trace.set_tracer(tracer)
+    t0 = time.perf_counter()
+    try:
+        for _ in range(timed):
+            drv.submit(n_blk, p_blk)
+        drv.drain()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        trace.set_tracer(None)
+    committed1 = eng.committed_total()
+    w1 = wal_totals(eng)
+    pc = {k: eng.pipeline_counters[k] - pc0[k] for k in pc0}
+    spans = tracer.summary()
+    bp = [e["dur"] for e in tracer.events()
+          if e.get("name") == "engine.backpressure"]
+    dw = {k: w1[k] - w0[k] for k in ("syncs", "writes", "bytes_written",
+                                    "sync_time_us", "readback_bytes",
+                                    "readback_bytes_full")}
+    # a profiler window: device busy and the commit-phase executions
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(profiled):
+            drv.submit(n_blk, p_blk)
+        drv.drain()
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t1
+    groups = device_rows(prof)
+    executions = sum(e.count for e in groups["kernels"]
+                     if "commit_phase_kernel" in e.key)
+    kernel_ms = sum(e.self_device_time_total for e in groups["kernels"]) / 1e3
+    copy_ms = sum(e.self_device_time_total for e in groups["copies"]) / 1e3
+    transfer_ms = sum(e.self_device_time_total
+                      for e in groups["transfers"]) / 1e3
+    if executions != profiled * K:
+        raise AssertionError(f"{executions} commit_phase executions in a "
+                             f"durable profiler window of {profiled * K} "
+                             "inner steps")
+    # sampled dispatches: no lane commits past the WAL's fsync horizon
+    # (monotone without elections, so the horizon read after the
+    # dispatch bounds the one the dispatch used)
+    drv.close()
+    lane = np.arange(N)
+    for _ in range(sampled):
+        eng.superstep(n_blk, p_blk)
+        torch.cuda.synchronize()
+        confirm = eng._dur.confirm_upto.copy()
+        st = eng.state
+        com = st.commit.cpu().numpy()[lane, st.leader_slot.cpu().numpy()]
+        if not (com <= confirm).all():
+            raise AssertionError("a lane committed past confirm_upto")
+    settle_steps = settle_durable(eng, cmds)
+    # exact: every accepted command committed once and applied by every
+    # member; the WAL counters follow from the step and row counts
+    steps = eng._dur.step_seq
+    per_lane = eng.committed_per_lane().astype(np.int64)
+    st = eng.state
+    lead = st.leader_slot.cpu().numpy()
+    counter = eng.machine_states()
+    if not (counter[lane, lead] == per_lane).all() or \
+            not (counter == per_lane[:, None]).all():
+        raise AssertionError("durable path: counters != committed")
+    rows = int(per_lane.sum())
+    ctr = eng._dur.counters
+    want_ctr = {
+        "encoded_blocks": shards * steps,
+        "readback_bytes": steps * (16 * N + 4 * (shards - 1)) + 4 * rows,
+        "readback_bytes_full": steps * (12 * N + 4 * N * cmds),
+        "encoded_bytes": steps * (_BLK.size + _BLK2.size * (shards - 1)
+                                  + 12 * N) + 4 * rows}
+    if ctr != want_ctr:
+        raise AssertionError(f"durable WAL counters {ctr} != {want_ctr}")
+    if not (eng.state.total_committed.cpu().numpy() ==
+            eng.state.last_index.cpu().numpy()[lane, lead]).all():
+        raise AssertionError("durable path: a committed tail != the log")
+    # recovery: a checkpoint, a WAL tail after it, close, replay
+    t0 = time.perf_counter()
+    eng.checkpoint()
+    ckpt_s = time.perf_counter() - t0
+    step0 = eng._dur.step_seq
+    drv = DispatchAheadDriver(eng, max_in_flight=2)
+    for _ in range(tail):
+        drv.submit(n_blk, p_blk)
+    drv.close()
+    settle_durable(eng, cmds)
+    replay_steps = eng._dur.step_seq - step0
+    before = core(eng.state, state_to_numpy)
+    committed_before = eng.committed_total()
+    eng.close()
+    launches0 = cpm.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = open_engine(CounterMachine(), str(root), N, P, device=dev, **kw)
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t0
+    replay_launches = cpm.LAUNCHES - launches0
+    assert_arrays(core(eng.state, state_to_numpy), before,
+                  "durable path recovered")
+    if replay_launches < replay_steps:
+        raise AssertionError(f"recovery replayed {replay_steps} steps with "
+                             f"{replay_launches} commit_phase launches")
+    eng.checkpoint()
+    full = state_to_numpy(eng.state)
+    eng.close()
+    t0 = time.perf_counter()
+    eng = open_engine(CounterMachine(), str(root), N, P, device=dev, **kw)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    assert_arrays(state_to_numpy(eng.state), full,
+                  "durable path checkpoint reopen")
+    eng.close()
+    shutil.rmtree(root, ignore_errors=True)
+    launches = {"commit_phase": cpm.LAUNCHES,
+                "evaluate_quorum": pq.LAUNCHES}
+    if launches["commit_phase"] == 0 or launches["evaluate_quorum"]:
+        raise AssertionError(f"durable path launches {launches}")
+    inner = timed * K
+    ms = seconds / inner * 1e3
+    emit({"phase": "durable_path", "lanes": N, "members": P,
+          "superstep_k": K, "cmds_per_step": cmds, "timed_dispatches": timed,
+          "wal_shards": shards, "sync_mode": 1, "max_pending": 32,
+          "filesystem": fs, "native_io": io_native,
+          "ms_per_inner_step": ms,
+          "committed_cmds_per_s": (committed1 - committed0) / seconds,
+          "volatile_ms_per_inner_step": volatile["ms_per_inner_step"],
+          "volatile_committed_cmds_per_s":
+          volatile["committed_cmds_per_s"],
+          "fsyncs": dw["syncs"], "wal_records": dw["writes"],
+          "records_per_fsync": dw["writes"] / max(1, dw["syncs"]),
+          "fsync_p50_ms": w1["fsync_p50_ms"],
+          "fsync_p99_ms": w1["fsync_p99_ms"],
+          "fsync_busy_share": dw["sync_time_us"] / 1e6 / seconds / shards,
+          "wal_mb_per_s": dw["bytes_written"] / seconds / 1e6,
+          "readback_bytes": dw["readback_bytes"],
+          "readback_bytes_full": dw["readback_bytes_full"],
+          "backpressure_waits": sum(1 for d in bp if d > 100.0),
+          "backpressure_ms_per_dispatch": sum(bp) / 1e3 / timed,
+          "window_syncs": pc["window_syncs"],
+          "window_wait_ms_per_dispatch":
+          (drv.window_wait_s - wait0) / timed * 1e3,
+          "spans_ms_per_dispatch": {
+              k: v["total_us"] / 1e3 / timed for k, v in spans.items()
+              if k != "_meta"},
+          "spans_max_ms": {k: v["max_us"] / 1e3 for k, v in spans.items()
+                           if k != "_meta"},
+          "spans_count": {k: v["count"] for k, v in spans.items()
+                          if k != "_meta"},
+          "traced_ms_per_inner_step": traced_s / (profiled * K) * 1e3,
+          "kernel_ms_per_inner_step": kernel_ms / (profiled * K),
+          "d2d_copy_ms_per_inner_step": copy_ms / (profiled * K),
+          "transfer_ms_per_inner_step": transfer_ms / (profiled * K),
+          "device_idle_share_traced":
+          1.0 - (kernel_ms + copy_ms) / (traced_s * 1e3),
+          "commit_phase_executions": executions,
+          "sampled_dispatches_commit_le_confirm": sampled,
+          "settle_steps": settle_steps, "wal_counters_exact": True,
+          "checkpoint_s": ckpt_s, "replayed_steps": replay_steps,
+          "recovery_s": recovery_s,
+          "replay_steps_per_s": replay_steps / recovery_s,
+          "checkpoint_reopen_s": restore_s,
+          "committed_before_close": committed_before,
+          "recovered_equal": True,
+          "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
+          "host_launches": launches})
+    return launches
+
+
+def thread_cpu_s() -> dict:
+    """CPU seconds of this process's live threads, summed by name with
+    the digits dropped (a plane's shard threads are one group)."""
+    out: dict = {}
+    for t in threading.enumerate():
+        try:
+            s = time.clock_gettime(time.pthread_getcpuclockid(t.ident))
+        except (OSError, TypeError):        # the thread has just ended
+            continue
+        name = re.sub(r"\d+", "", t.name)
+        out[name] = out.get(name, 0.0) + s
+    return out
+
+
+class LockProbe(threading.Thread):
+    """Sleeps 1 ms at a time and keeps how late each wake-up comes back:
+    a woken thread must take the interpreter lock again, so the lateness
+    is how long other threads hold it."""
+
+    def __init__(self) -> None:
+        super().__init__(daemon=True, name="lock-probe")
+        self.late_ms: list = []
+        self._stop_ev = threading.Event()
+
+    def run(self) -> None:
+        while not self._stop_ev.is_set():
+            t = time.perf_counter()
+            time.sleep(0.001)
+            self.late_ms.append((time.perf_counter() - t) * 1e3 - 1.0)
+
+    def stop(self) -> dict:
+        self._stop_ev.set()
+        self.join()
+        late = sorted(self.late_ms)
+        return {"wakeups": len(late),
+                "late_ms_p50": late[len(late) // 2],
+                "late_ms_p90": late[int(len(late) * 0.9)],
+                "late_ms_mean": statistics.fmean(late)}
+
+
+def phase_durable_diagnosis(CounterMachine, DispatchAheadDriver,
+                            open_engine, trace, dev,
+                            n_lanes: int = 10_000) -> None:
+    """``durable_path``'s timed loop twice, with fdatasync (sync_mode 1)
+    and without (0): which of the disk and the host sets ms per inner
+    step and committed cmds/s.  Each run reports the CPU seconds of each
+    thread group, the dispatch thread's spans and how late a 1 ms sleeper
+    gets the interpreter lock back."""
+    N, P, cmds, K = n_lanes, 5, 128, 8
+    warm, timed = 2, 25
+    shards = max(1, min(4, (os.cpu_count() or 2) // 2))
+    n_blk = np.broadcast_to(np.full(N, cmds, np.int32), (K, N))
+    p_blk = np.broadcast_to(np.ones((N, cmds, 1), np.int32),
+                            (K, N, cmds, 1))
+    runs = {}
+    for sync_mode in (1, 0):
+        root = WAL_ROOT / f"diagnosis{sync_mode}"
+        shutil.rmtree(root, ignore_errors=True)
+        root.mkdir(parents=True)
+        eng = open_engine(CounterMachine(), str(root), N, P, device=dev,
+                          wal_shards=shards, sync_mode=sync_mode,
+                          max_pending=32, ring_capacity=1024,
+                          max_step_cmds=cmds, apply_window=130)
+        drv = DispatchAheadDriver(eng, max_in_flight=2)
+        for _ in range(warm):
+            drv.submit(n_blk, p_blk)
+        drv.drain()
+        eng._dur.flush_all()
+        torch.cuda.synchronize()
+        w0, committed0 = wal_totals(eng), eng.committed_total()
+        tracer = trace.Tracer()
+        trace.set_tracer(tracer)
+        probe = LockProbe()
+        cpu0, proc0 = thread_cpu_s(), time.process_time()
+        probe.start()
+        t0 = time.perf_counter()
+        try:
+            for _ in range(timed):
+                drv.submit(n_blk, p_blk)
+            drv.drain()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            trace.set_tracer(None)
+            lock = probe.stop()
+        cpu1, proc1 = thread_cpu_s(), time.process_time()
+        committed1, w1 = eng.committed_total(), wal_totals(eng)
+        drv.close()
+        eng.close()
+        shutil.rmtree(root, ignore_errors=True)
+        spans = tracer.summary()
+        runs[f"sync_mode_{sync_mode}"] = {
+            "ms_per_inner_step": seconds / (timed * K) * 1e3,
+            "committed_cmds_per_s": (committed1 - committed0) / seconds,
+            "wal_mb_per_s": (w1["bytes_written"] - w0["bytes_written"])
+            / seconds / 1e6,
+            "fsyncs": w1["syncs"] - w0["syncs"],
+            "readback_share": (w1["readback_bytes"] - w0["readback_bytes"])
+            / max(1, w1["readback_bytes_full"] - w0["readback_bytes_full"]),
+            "wall_ms_per_dispatch": seconds / timed * 1e3,
+            "cpu_ms_per_dispatch": {
+                k: (cpu1[k] - cpu0[k]) / timed * 1e3
+                for k in cpu1 if k in cpu0 and k != "lock-probe"},
+            "process_cpu_ms_per_dispatch": (proc1 - proc0) / timed * 1e3,
+            "spans_ms_per_dispatch": {
+                k: v["total_us"] / 1e3 / timed for k, v in spans.items()
+                if k != "_meta"},
+            "lock_probe": lock}
+    emit({"phase": "durable_diagnosis", "lanes": N, "members": P,
+          "superstep_k": K, "cmds_per_step": cmds, "timed_dispatches": timed,
+          "wal_shards": shards, "max_pending": 32, **runs})
 
 
 def main() -> int:
@@ -660,9 +1173,11 @@ def main() -> int:
         return 1
     # the port comes from the checkout this script sits in: alone in a
     # directory, the script stops here
-    from ra_tpu_torch import devicewatch
+    from ra_tpu_torch import devicewatch, trace
     from ra_tpu_torch.convert import state_to_numpy
     from ra_tpu_torch.engine import DispatchAheadDriver, LockstepEngine
+    from ra_tpu_torch.engine.durable import open_engine
+    from ra_tpu_torch.log.wal import scan_wal_file
     from ra_tpu_torch.models import CounterMachine
     from ra_tpu_torch.telemetry import TelemetrySampler
     from ra_tpu_torch.ops import _build, quorum
@@ -694,12 +1209,24 @@ def main() -> int:
     launches = phase_main_path(pq, cpm, LockstepEngine, CounterMachine, dev)
     phase_superstep_parity(cpm, LockstepEngine, CounterMachine,
                            state_to_numpy, devicewatch, dev)
-    ss_launches = phase_superstep_path(
+    volatile, ss_launches = phase_superstep_path(
         pq, cpm, LockstepEngine, CounterMachine, DispatchAheadDriver,
         TelemetrySampler, devicewatch, dev)
+    try:
+        phase_wal_disk()
+        phase_durable_parity(cpm, CounterMachine, open_engine,
+                             state_to_numpy, scan_wal_file, dev)
+        dur_launches = phase_durable_path(
+            pq, cpm, CounterMachine, DispatchAheadDriver, open_engine,
+            trace, state_to_numpy, dev, volatile)
+        phase_durable_diagnosis(CounterMachine, DispatchAheadDriver,
+                                open_engine, trace, dev)
+    finally:
+        shutil.rmtree(WAL_ROOT, ignore_errors=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_superstep_path"] = ss_launches[k["name"]]
+        k["launches_durable_path"] = dur_launches[k["name"]]
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

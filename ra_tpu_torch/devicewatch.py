@@ -7,7 +7,9 @@ reference:
 * **Transfer ledger** -- :func:`record_h2d` / :func:`record_d2h` count
   copy events and bytes per named call site (``driver_stage``,
   ``driver_watermark``, ``driver_read``, ``lanes_async``,
-  ``sampler_harvest``) in ``WATCH.sites``.  A copy is counted when it
+  ``sampler_harvest``, and ``wal_readback``: the durable engine's WAL
+  shards pulling a step's compacted rows and headers off the device) in
+  ``WATCH.sites``.  A copy is counted when it
   starts, from the sizes the caller already holds, so an awaited handle
   is never counted twice and the taps never touch the device.
 * **Capture sentinel** -- the twin of the reference's recompile

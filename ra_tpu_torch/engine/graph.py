@@ -89,6 +89,9 @@ class GraphCache:
     def __len__(self) -> int:
         return len(self._graphs)
 
+    def __contains__(self, key) -> bool:
+        return key in self._graphs
+
     def get(self, key, fn: Callable, args: tuple, device: torch.device,
             launch_counts: Callable[[], dict]) -> CapturedCall:
         """The graph of ``key``, captured from ``fn(*args)`` if there is

@@ -7,13 +7,15 @@ one ``step`` advances every cluster at once.  Per lane, ``_step`` runs:
   0. failures, divergent-tail clamp and the vote round;
   1. leader append into the ``[N,R,C]`` payload ring (with backpressure);
   2. replication under ``pipeline_credit``;
-  3. write confirm (``write_delay`` 0 or 1);
+  3. write confirm: ``write_delay`` 0 or 1, or in durable mode the WAL's
+     fsync horizon ``confirm_upto``;
   4. reply fold, the commit quorum and the commit broadcast; 4a. lease
      and read registration; 4b. the query quorum — all three on a CUDA
      engine one launch of the hand-written fused kernel
      (``ops.commit_phase``), on the CPU its plain torch version;
   5. the apply fold over the committed window;
-  5b. per-lane telemetry; 5c. read serve or refuse.
+  5b. per-lane telemetry; 5c. read serve or refuse;
+  6. in durable mode, the compaction of the accepted rows for the WAL.
 
 ``superstep`` runs K rounds in one dispatch (``_superstep``, the
 reference's ``lax.scan``): on a CUDA engine one replay of a captured CUDA
@@ -22,13 +24,18 @@ graph of the K steps (``engine/graph.py``), on the CPU a plain loop.
 while the device runs the current one, and ``TelemetrySampler``
 (``telemetry.py``) rides the same dispatch loop.
 
+In durable mode (``attach_durability``, or ``engine.durable.open_engine``)
+commits gate on real fsync confirms from a sharded WAL: every dispatch
+takes the WAL's confirm horizon as an input, and its accepted entries,
+compacted on the device, go to the WAL shards (``engine/durable.py``).
+
 Every tensor keeps the reference's dtype (int32 or bool), and the state
 after every step and dispatch equals the JAX engine's on the same inputs
 (``tests/test_torch_engine.py``, ``tests/test_torch_superstep.py``).
 ``step`` and ``superstep`` never read the device back and never wait
-on it: host masks are numpy data, copied to the device from pinned
-memory without blocking.  The durable engine and the
-sequential-machine apply path are not ported yet.
+on it: host masks and the confirm horizon are numpy data, copied to the
+device from pinned memory without blocking.  The sequential-machine
+apply path is not ported yet.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import devicewatch
+from .. import devicewatch, trace
 from ..convert import state_from_numpy, state_to_numpy
 from ..core.machine import JitMachine
 from ..core.tree import tree_map
@@ -244,15 +251,23 @@ def _init_state(n_lanes: int, n_members: int, ring_capacity: int,
 
 
 def _step(state: LaneState, n_new: Tensor, payloads: Tensor,
-          fail_mask: Tensor, elect_mask: Tensor, query_mask: Tensor,
-          n_read: Tensor, read_q: Tensor, *, machine: JitMachine,
-          ring_capacity: int, apply_window: int, pipeline_window: int,
-          max_append_batch: int, write_delay: int, lease_ttl: int = 8,
+          fail_mask: Tensor, elect_mask: Tensor, confirm_upto: Tensor,
+          query_mask: Tensor, n_read: Tensor, read_q: Tensor, *,
+          machine: JitMachine, ring_capacity: int, apply_window: int,
+          pipeline_window: int, max_append_batch: int, write_delay: int,
+          durable: bool = False, lease_ttl: int = 8,
           read_timeout: int = 64):
     """One lockstep round for every lane.  Pure: returns
     ``(new_state, aux)`` and leaves ``state`` untouched.  The phases and
     their Raft sources are those of the reference ``_step``
-    (``ra_tpu/engine/lockstep.py``), without its durable branches."""
+    (``ra_tpu/engine/lockstep.py``).
+
+    ``confirm_upto`` (int32[N]) is the WAL's durable horizon: with
+    ``durable=True`` ``last_written`` advances only to it, so the commit
+    quorum counts nothing that is not fsynced, and the aux gains the
+    step's accepted rows compacted for the WAL (``flat_rows``
+    [N*K, C], ``row_csum`` int32[N]).  Without ``durable`` it is not
+    read."""
     if not machine.supports_batch_apply:
         raise NotImplementedError(
             "the port's apply fold needs a machine with "
@@ -332,7 +347,21 @@ def _step(state: LaneState, n_new: Tensor, payloads: Tensor,
                              last_index)
 
     # -- 3. write confirm -------------------------------------------------
-    if write_delay == 0:
+    if durable:
+        # real confirms: nothing beyond the WAL's fsync horizon enters the
+        # quorum.  On a won election the horizon is also capped at the new
+        # leader's pre-noop written tail: the truncated suffix's indexes
+        # are reused by fresh entries, and a confirm of the old suffix
+        # must not vouch for them
+        eff_confirm = torch.where(elect_ok,
+                                  torch.minimum(confirm_upto,
+                                                leader_written),
+                                  confirm_upto)
+        last_written = torch.where(active,
+                                   torch.minimum(last_index,
+                                                 eff_confirm[:, None]),
+                                   last_written0)
+    elif write_delay == 0:
         last_written = torch.where(active, last_index, last_written0)
     else:
         # confirms lag one step: this step confirms the previous tail
@@ -450,19 +479,50 @@ def _step(state: LaneState, n_new: Tensor, payloads: Tensor,
            "read_served_lanes": read_served,
            "read_shed_lanes": read_shed_tot,
            "read_stale_lanes": read_stale_tot}
+    if durable:
+        aux["flat_rows"], aux["row_csum"] = _compact_accepted(
+            payloads.to(ring.dtype), n_acc)
     return new_state, aux
 
 
+def _compact_accepted(payloads: Tensor, n_acc: Tensor):
+    """Step 6 of the durable step: the accepted host rows, lane-major, in
+    a dense ``[N*K, C]`` buffer (rows past the accepted total are zero),
+    and the running accept total ``row_csum`` int32[N], so that the WAL
+    reads back exactly rows ``[0, row_csum[-1])``.
+
+    Output row j comes from lane ``searchsorted(csum, j, right=True)``:
+    the reference's ``jnp.repeat(lanes, n_acc, total_repeat_length=N*K)``,
+    which pads with the last lane id, as does the clamp here.  No host
+    sync, no allocation that depends on the data: it captures in a CUDA
+    graph (``torch.repeat_interleave`` would sync, or raise when the
+    accepted total is not N*K)."""
+    N, K, C = payloads.shape
+    csum = torch.cumsum(n_acc, 0, dtype=I32)                    # [N]
+    if N == 0:
+        return payloads.reshape(0, C), csum
+    j = torch.arange(N * K, dtype=I32, device=payloads.device)
+    src_lane = torch.searchsorted(csum, j, right=True).clamp_(max=N - 1)
+    row_base = csum[src_lane] - n_acc[src_lane]                 # [N*K]
+    k_off = torch.clamp(j - row_base, 0, max(K - 1, 0))
+    flat = payloads.reshape(N * K, C)[src_lane * K + k_off]
+    valid = j < csum[-1]
+    return torch.where(valid[:, None], flat, 0), csum
+
+
 def _superstep(state: LaneState, n_new_blk: Tensor, payloads_blk: Tensor,
-               fail_mask: Tensor, elect_blk: Tensor, query_blk: Tensor,
-               n_read_blk: Tensor, read_q_blk: Tensor, **step_kwargs):
+               fail_mask: Tensor, elect_blk: Tensor, confirm_upto: Tensor,
+               query_blk: Tensor, n_read_blk: Tensor, read_q_blk: Tensor,
+               **step_kwargs):
     """K lockstep rounds: the reference's ``lax.scan`` over ``_step``
     (``ra_tpu/engine/lockstep.py::_superstep``) as a loop of K steps.
     The schedule has a leading ``[K]`` axis (``n_new_blk`` [K,N],
     ``payloads_blk`` [K,N,Kc,C], elect/query masks [K,N], ``n_read_blk``
-    [K,N], ``read_q_blk`` [K,N,Kr,Cq]); the fail mask is constant for
-    the dispatch.  Returns ``(new_state, aux)`` with every aux leaf
-    stacked on a leading ``[K]`` axis, plus two watermarks per inner
+    [K,N], ``read_q_blk`` [K,N,Kr,Cq]); the fail mask and the durable
+    confirm horizon ``confirm_upto`` are constant for the dispatch, so
+    within a dispatch confirms only lag the real fsyncs.  Returns
+    ``(new_state, aux)`` with every aux leaf stacked on a leading
+    ``[K]`` axis, plus two watermarks per inner
     step: ``committed_lanes`` (cumulative committed per lane) and
     ``applied_lanes`` (the lane apply frontier over active members, 0
     for a lane with none).  Pure, with no host sync: on a CUDA engine it
@@ -470,8 +530,8 @@ def _superstep(state: LaneState, n_new_blk: Tensor, payloads_blk: Tensor,
     auxes = []
     for j in range(n_new_blk.shape[0]):
         state, aux = _step(state, n_new_blk[j], payloads_blk[j], fail_mask,
-                           elect_blk[j], query_blk[j], n_read_blk[j],
-                           read_q_blk[j], **step_kwargs)
+                           elect_blk[j], confirm_upto, query_blk[j],
+                           n_read_blk[j], read_q_blk[j], **step_kwargs)
         auxes.append({**aux, **step_watermarks(state)})
     return state, {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
 
@@ -622,7 +682,9 @@ class LockstepEngine:
         self._superstep_k_last = 0
         self._driver = None     # the attached DispatchAheadDriver
         self._telemetry = None  # the attached TelemetrySampler
-        #: one captured graph of ``_superstep`` per (K, Kc, reads)
+        # the attached durability bridge (durable mode), or None
+        self._dur = None  # ra-type: ra_tpu_torch.engine.durable.EngineDurability
+        #: one captured graph of ``_superstep`` per (K, Kc, reads, durable)
         self._graphs = GraphCache() \
             if self.device.type == "cuda" else None
         dev = self.device
@@ -631,10 +693,24 @@ class LockstepEngine:
         self._zero_elect = torch.zeros((n_lanes,), dtype=torch.bool,
                                        device=dev)
         self._zero_nread = torch.zeros((n_lanes,), dtype=I32, device=dev)
+        self._zero_confirm = self._zero_nread
         self._zero_readq = torch.zeros(
             (n_lanes, self.read_window, self.query_width),
             dtype=self.query_dtype, device=dev)
         self._fail_host = np.zeros((n_lanes, n_members), bool)
+
+    def attach_durability(self, dur) -> None:
+        """Switch the engine into durable mode: ``dur`` (an
+        ``engine.durable.EngineDurability``) supplies the per-lane WAL
+        confirm horizon before each dispatch and takes each step's
+        compacted append outcome after it.  The engine adopts the
+        bridge's latency phases, and graphs captured before are dropped:
+        a durable dispatch has two more outputs."""
+        self._dur = dur
+        self.phases = dur.phases
+        self._step_kwargs["durable"] = True
+        if self._graphs is not None:
+            self._graphs = GraphCache()
 
     # -- driving -----------------------------------------------------------
 
@@ -668,10 +744,13 @@ class LockstepEngine:
         """Advance every lane one round.  n_new: int32[N]; payloads:
         [N, K, C] with K <= max_step_cmds.  Masks (bool[N]) are host data.
         ``n_read``/``read_q`` (int32[N], [N, Kr, Cq]) register
-        consistent-read batches.  Returns the step aux (device tensors)."""
+        consistent-read batches.  In durable mode the step waits out the
+        WAL's backpressure window, gates its commits on the confirm
+        horizon, and hands its compacted accepted rows to the WAL shards.
+        Returns the step aux (device tensors)."""
         fail = self._fail_mask()
-        elect = self._zero_elect if elect_mask is None \
-            else self._host_mask(elect_mask)[0]
+        elect, elect_any = (self._zero_elect, False) if elect_mask is None \
+            else self._host_mask(elect_mask)
         query = self._zero_elect if query_mask is None \
             else self._dev(query_mask, torch.bool)
         nr = self._zero_nread if n_read is None else self._dev(n_read, I32)
@@ -679,10 +758,20 @@ class LockstepEngine:
             else self._dev(read_q, self.query_dtype)
         self.pipeline_counters["dispatches"] += 1
         self.pipeline_counters["inner_steps"] += 1
-        self.state, aux = _step(self.state, self._dev(n_new, I32),
-                                self._dev(payloads, self.payload_dtype),
-                                fail, elect, query, nr, rq,
-                                **self._step_kwargs)
+        dur = self._dur
+        confirm = self._confirm_horizon()
+        with trace.span("engine.step", "engine", durable=dur is not None):
+            self.state, aux = _step(self.state, self._dev(n_new, I32),
+                                    self._dev(payloads, self.payload_dtype),
+                                    fail, elect, confirm, query, nr, rq,
+                                    **self._step_kwargs)
+        if dur is not None:
+            with trace.span("engine.wal_submit", "engine"):
+                dur.submit(aux)
+            if elect_any:
+                # elections truncate and reuse indexes: drain now so the
+                # next dispatch reads a horizon clamped at the new base
+                dur.drain_all()
         if self._telemetry is not None:
             # after the dispatch, never blocking: the sampler only starts
             # device work and copies here
@@ -697,11 +786,14 @@ class LockstepEngine:
         ``payloads_blk`` [K, N, Kc, C]; optional elect/query schedules
         bool[K, N] (host data) for elections and queries inside the
         dispatch; ``n_read_blk``/``read_q_blk`` ([K, N], [K, N, Kr, Cq])
-        a read schedule.  The fail mask is sampled once per dispatch.
+        a read schedule.  The fail mask, and in durable mode the WAL's
+        confirm horizon, are sampled once per dispatch; a durable
+        dispatch's K steps go to the WAL shards as K blocks.
 
         On a CUDA engine this is one replay of the CUDA graph captured
-        for ``(K, Kc, reads)`` (captured on first use; the commit-phase
-        kernel runs K times inside it), on the CPU a loop of K steps.
+        for ``(K, Kc, reads, durable)`` (captured on first use; the
+        commit-phase kernel runs K times inside it), on the CPU a loop of
+        K steps.
         Returns the stacked per-inner-step aux (device tensors, a leading
         [K] axis on every leaf); ``committed_lanes`` [K, N] is the
         cumulative committed watermark after each inner step."""
@@ -709,8 +801,8 @@ class LockstepEngine:
         payloads = self._dev(payloads_blk, self.payload_dtype)
         k, N = n_new.shape[0], self.n_lanes
         fail = self._fail_mask()
-        elect = self._zero_elect.expand(k, N) if elect_blk is None \
-            else self._host_mask(elect_blk)[0]
+        elect, elect_any = (self._zero_elect.expand(k, N), False) \
+            if elect_blk is None else self._host_mask(elect_blk)
         query = self._zero_elect.expand(k, N) if query_blk is None \
             else self._dev(query_blk, torch.bool)
         reads = n_read_blk is not None or read_q_blk is not None
@@ -723,35 +815,58 @@ class LockstepEngine:
         self.pipeline_counters["superstep_dispatches"] += 1
         self.pipeline_counters["inner_steps"] += k
         self._superstep_k_last = k
-        if self._graphs is None:
-            self.state, aux = _superstep(self.state, n_new, payloads, fail,
-                                         elect, query, nr, rq,
-                                         **self._step_kwargs)
-        else:
-            self.state, aux = self._graph_superstep(
-                n_new, payloads, fail, elect, query, nr, rq, reads)
+        dur = self._dur
+        confirm = self._confirm_horizon()
+        with trace.span("engine.superstep", "engine",
+                        durable=dur is not None, k=k):
+            if self._graphs is None:
+                self.state, aux = _superstep(self.state, n_new, payloads,
+                                             fail, elect, confirm, query,
+                                             nr, rq, **self._step_kwargs)
+            else:
+                self.state, aux = self._graph_superstep(
+                    n_new, payloads, fail, elect, confirm, query, nr, rq,
+                    reads)
+        if dur is not None:
+            with trace.span("engine.wal_submit", "engine", k=k):
+                dur.submit_block(aux, k)
+            if elect_any:
+                dur.drain_all()
         if self._telemetry is not None:
             self._telemetry.tick(k)
         return aux
 
-    def _graph_superstep(self, n_new, payloads, fail, elect, query, nr, rq,
-                         reads: bool):
+    def _confirm_horizon(self) -> Tensor:
+        """Durable mode: wait out the WAL's backpressure window, then the
+        merged confirm horizon on the device, sampled once a dispatch
+        (a pinned copy that does not block).  Volatile: zeros."""
+        if self._dur is None:
+            return self._zero_confirm
+        with trace.span("engine.backpressure", "engine"):
+            self._dur.backpressure()
+        return self._dev(self._dur.confirm_upto, I32)
+
+    def _graph_superstep(self, n_new, payloads, fail, elect, confirm, query,
+                         nr, rq, reads: bool):
         """``_superstep`` as one replay of its captured CUDA graph.
         Without reads the zero read schedule is part of the graph, not an
-        input copied in every dispatch."""
-        kw = self._step_kwargs
-        args = (self.state, n_new, payloads, fail, elect, query)
+        input copied in every dispatch.  Before a capture a durable engine
+        drains its WAL shards: their workers copy rows off the device,
+        and no other thread may touch the device while one captures."""
+        durable = self._dur is not None
+        args = (self.state, n_new, payloads, fail, elect, confirm, query)
         if reads:
             args += (nr, rq)
-
-            def fn(*a):
-                return _superstep(*a, **kw)
+            fn = functools.partial(_superstep, **self._step_kwargs)
         else:
-            def fn(*a):
-                return _superstep(*a, nr, rq, **kw)
+            fn = functools.partial(_superstep, n_read_blk=nr, read_q_blk=rq,
+                                   **self._step_kwargs)
         k = n_new.shape[0]
+        key = (k, payloads.shape[2], reads, durable)
+        if durable and key not in self._graphs:
+            self._dur.drain_all()
         g = self._graphs.get(
-            (k, payloads.shape[2], reads), fn, args, self.device,
+            key, fn, args, self.device,
             lambda: {"commit_phase": commit_phase.LAUNCHES,
                      "evaluate_quorum": pallas_quorum.LAUNCHES})
         if g.captured_launches["commit_phase"] != k:
@@ -760,6 +875,18 @@ class LockstepEngine:
                 f"{g.captured_launches['commit_phase']} commit-phase "
                 f"launches for {k} inner steps")
         return g(*args)
+
+    def checkpoint(self) -> str:
+        """Durable mode: quiesce the WAL, snapshot the full lane state and
+        prune the WAL files the snapshot covers.  Returns its path."""
+        if self._dur is None:
+            raise RuntimeError("checkpoint() requires durable mode")
+        return self._dur.checkpoint(self)
+
+    def close(self) -> None:
+        """Flush and close the durability bridge (no-op when volatile)."""
+        if self._dur is not None:
+            self._dur.close()
 
     def uniform_step(self, cmds_per_lane: int, payload_value=1) -> dict:
         """Every lane's leader receives the same number of commands this
@@ -1079,4 +1206,7 @@ class LockstepEngine:
                 "read_timeout": self.read_timeout,
                 "read_window": self.read_window,
             }
+        if self._dur is not None:
+            # the durability plane: ENGINE_WAL_FIELDS and per-shard stats
+            out["wal"] = self._dur.wal_overview()
         return out

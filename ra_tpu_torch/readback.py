@@ -52,6 +52,13 @@ class Readback:
             self._event.record(torch.cuda.current_stream(dev))
         self._np = None
 
+    @property
+    def event(self) -> Optional[torch.cuda.Event]:
+        """The event recorded after the copy (None from a CPU tensor):
+        another stream that waits on it runs after the work that
+        produced the source."""
+        return self._event
+
     def is_ready(self) -> bool:
         """True once the copy has landed (never blocks)."""
         return self._event is None or self._event.query()

@@ -15,8 +15,9 @@ The port's own copies of ``ra_tpu/telemetry.py``'s ``PhaseStats`` and
   on it.
 
 The reference sampler also feeds a trace counter track and takes a
-device-memory census on its harvest tick; both wait for the port of the
-tracer and of the rest of ``devicewatch`` (ROADMAP.md Queue 1 item 8).
+device-memory census on its harvest tick; the port has the tracer
+(``trace.py``) but neither feed yet: they wait for the rest of
+``devicewatch`` (ROADMAP.md Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -48,9 +49,10 @@ PHASE_HIST_BUCKETS = 16
 
 class PhaseStats:
     """Phase-resolved latency attribution: where a window's latency went
-    (host staging, device dispatch, read service, and the WAL phases
-    once the durable engine is ported).  One accumulator per engine; a
-    sample is a pair of ``time.monotonic()`` stamps taken on the host."""
+    (host staging, device dispatch, read service, and on a durable
+    engine the WAL phases, stamped by its bridge and WAL shards).  One
+    accumulator per engine; a sample is a pair of ``time.monotonic()``
+    stamps taken on the host."""
 
     def __init__(self, *, reservoir: int = 512) -> None:
         self._fields = PHASE_FIELDS

@@ -51,8 +51,11 @@ def test_no_jax_or_ra_tpu_import(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, ra_tpu_torch, ra_tpu_torch.engine, "
             "ra_tpu_torch.convert, ra_tpu_torch.ops.pallas_quorum, "
-            "ra_tpu_torch.ops.commit_phase\n"
-            "ra_tpu_torch.LockstepEngine\n"
+            "ra_tpu_torch.ops.commit_phase, ra_tpu_torch.engine.durable, "
+            "ra_tpu_torch.wal_probe\n"
+            "ra_tpu_torch.LockstepEngine, ra_tpu_torch.open_engine\n"
+            "from ra_tpu_torch import native\n"
+            "assert not native.IO._loaded   # no g++ at import\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ra_tpu'))\n"
             "assert not bad, bad\n"
