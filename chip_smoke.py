@@ -15,6 +15,19 @@ non-zero (there is no CPU path and no fallback to a plain version):
              and dtype, both block sizes); kernel and plain version
              timed with CUDA events, per call (host launch included) and
              back to back in a CUDA graph (device only)
+  fold_kernels
+             the two in-order fold kernels (slot_fold for registers, KV
+             and TTL-KV; fifo_fold under both overflow policies) against
+             their plain version, the machine's sequential_window_fold on
+             the card, over three chained windows of every op,
+             out-of-range keys, negative values and int32 overflow: at
+             the paths' full widths and at ragged shapes (N not a
+             multiple of the block, P = 1, 3, 7, 16, A = 1, A > Q);
+             each timed a call
+             and back to back beside its bytes bound and the plain
+             version; and on the paths' bench windows the vectorised fast
+             fold (the reference's branch there, which the card does not
+             run) timed against the kernel, and equal to it
   parity     a seeded 64-step schedule (failures, elections with ties,
              recovery, membership, read batches) on a 1,024 x 5 engine,
              once on cuda and once on cpu: every LaneState leaf and aux
@@ -74,10 +87,36 @@ non-zero (there is no CPU path and no fallback to a plain version):
              group a dispatch, the tracer's spans and a 1 ms sleeper's
              lateness (how long other threads hold the interpreter lock):
              which of the disk and the host sets the pace
+  machine_parity
+             registers, KV and TTL-KV with reads, FIFO (consumer mix,
+             drop_head), a supports_batch_apply=False counter and a
+             float-state machine, each on a 64-step seeded schedule
+             (failures, recovery, elections inside dispatches) at 512 x
+             5: a card engine stepped eagerly against a CPU engine every
+             step, and a card engine replaying a K = 8 graph every
+             dispatch, every leaf and aux key; the fold kernel launched
+             once an eager step and captured K times in the graph
+  fifo_path  BASELINE.md's FIFO row: 5,000 x 5, JitFifoMachine(256, 8),
+             ring 1,024, 128 commands a lane a step, apply window 130,
+             through DispatchAheadDriver at K = 8 (2 warm, 25 timed, 3
+             profiled dispatches): (a) bench.py's enqueue 7 /
+             dequeue-settled alternation (the reference's fast fold; on
+             the card fifo_fold.cu, as every window), (b) a consumer
+             mix (the in-order fold in the reference too); ms per inner
+             step, committed cmds/s, launches and profiled executions,
+             the fold kernel's device ms, idle share, top kernels,
+             replica agreement, next_mid = admitted enqueues, and the
+             end state equal to a plain model of the queue
+  kv_path    the KV row at 10,000 x 5 through the same driver: (a)
+             bench.py's put/get mix, (b) the same with every 16th command
+             a cas (the in-order fold in the reference too; every mix runs
+             slot_fold.cu on the card), (c) TtlKvMachine(64) with
+             put/get/delete/watch; the same numbers, end states equal to
+             plain models
 
-then the kernels summary line (launches on the main path, on the
-superstep path its host launches, captured launches and profiled
-executions, and on the durable path), the nvidia-smi line, and last
+then the kernels summary line (launches on every path, each counted from
+0 just before it: main, superstep, durable, fifo and kv; "launches" is
+the count on the kernel's own path), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -103,8 +142,32 @@ WAL_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_wal"
 NON_TENSOR_OPS_PER_S = 67e12   # H100 SXM fp32 outside the tensor cores
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:          # seconds since the start, for the budget
+        obj = {**obj, "at_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
+
+
+def traced(fn):
+    """Run ``fn()`` with a fresh tracer on; returns (fn's result, the
+    ``engine.superstep`` spans' host ms a dispatch).  That span is the
+    dispatch thread's whole graph call: the copy-in of the state and the
+    block, the replay and the clone-out, none of which waits on the
+    device."""
+    from ra_tpu_torch import trace
+    tracer = trace.Tracer()
+    trace.set_tracer(tracer)
+    try:
+        out = fn()
+    finally:
+        trace.set_tracer(None)
+    durs = sorted(e["dur"] / 1e3 for e in tracer.events()
+                  if e.get("name") == "engine.superstep")
+    return out, {"count": len(durs), "mean_ms": sum(durs) / len(durs),
+                 "p50_ms": durs[len(durs) // 2], "max_ms": durs[-1]}
 
 
 def cuda_ms(fn, reps: int = 200, warmup: int = 20) -> float:
@@ -353,9 +416,10 @@ def phase_parity(pq, cpm, LockstepEngine, CounterMachine, state_to_numpy,
 
 def phase_main_path(pq, cpm, LockstepEngine, CounterMachine, dev,
                     n_lanes: int = 10_000) -> dict:
+    from ra_tpu_torch.ops import fifo_fold, slot_fold
     N, P, cmds = n_lanes, 5, 128
     warm, timed = 10, 200
-    pq.LAUNCHES = cpm.LAUNCHES = 0
+    pq.LAUNCHES = cpm.LAUNCHES = slot_fold.LAUNCHES = fifo_fold.LAUNCHES = 0
     eng = LockstepEngine(CounterMachine(), N, P, ring_capacity=1024,
                          max_step_cmds=128, apply_window=130, write_delay=1,
                          device=dev)
@@ -388,12 +452,15 @@ def phase_main_path(pq, cpm, LockstepEngine, CounterMachine, dev,
         raise AssertionError("read_lanes did not serve the counters")
     torch.cuda.synchronize()
     launches = {"commit_phase": cpm.LAUNCHES,
-                "evaluate_quorum": pq.LAUNCHES}
+                "evaluate_quorum": pq.LAUNCHES,
+                "slot_fold": slot_fold.LAUNCHES,
+                "fifo_fold": fifo_fold.LAUNCHES}
     steps = eng.pipeline_counters["inner_steps"]
-    if launches != {"commit_phase": steps, "evaluate_quorum": 0}:
+    if launches != {"commit_phase": steps, "evaluate_quorum": 0,
+                    "slot_fold": 0, "fifo_fold": 0}:
         raise AssertionError(f"kernel launches {launches} in {steps} "
                              "main-path steps; want one commit_phase a "
-                             "step and no evaluate_quorum")
+                             "step and no other kernel")
     emit({"phase": "main_path", "lanes": N, "members": P,
           "cmds_per_step": cmds, "timed_steps": timed,
           "committed_cmds_per_s": (committed1 - committed0) / seconds,
@@ -527,10 +594,11 @@ def ledger(devicewatch) -> dict:
 def phase_superstep_path(pq, cpm, LockstepEngine, CounterMachine,
                          DispatchAheadDriver, TelemetrySampler, devicewatch,
                          dev, n_lanes: int = 10_000) -> dict:
+    from ra_tpu_torch.ops import fifo_fold, slot_fold
     from ra_tpu_torch.step_profile import device_rows
     N, P, cmds, K = n_lanes, 5, 128, 8
     warm, timed, profiled = 2, 25, 3
-    pq.LAUNCHES = cpm.LAUNCHES = 0
+    pq.LAUNCHES = cpm.LAUNCHES = slot_fold.LAUNCHES = fifo_fold.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
     eng = LockstepEngine(CounterMachine(), N, P, ring_capacity=1024,
                          max_step_cmds=cmds, apply_window=130, write_delay=1,
@@ -552,12 +620,15 @@ def phase_superstep_path(pq, cpm, LockstepEngine, CounterMachine,
     watch0, sites0 = dict(devicewatch.WATCH.counters), ledger(devicewatch)
     pc0 = dict(eng.pipeline_counters)
     committed0, wait0 = eng.committed_total(), drv.window_wait_s
-    t0 = time.perf_counter()
-    for _ in range(timed):
-        drv.submit(n_blk, p_blk)
-    drv.drain()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+
+    def timed_window():
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            drv.submit(n_blk, p_blk)
+        drv.drain()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    seconds, graph_call = traced(timed_window)
     window_wait_ms = (drv.window_wait_s - wait0) / timed * 1e3
     phases = eng.phases.overview()
     committed1 = eng.committed_total()
@@ -619,15 +690,18 @@ def phase_superstep_path(pq, cpm, LockstepEngine, CounterMachine,
                              "steps")
     graph = eng._graphs._graphs[(K, cmds, False, False)]
     launches = {"commit_phase": cpm.LAUNCHES,
-                "evaluate_quorum": pq.LAUNCHES}
+                "evaluate_quorum": pq.LAUNCHES,
+                "slot_fold": slot_fold.LAUNCHES,
+                "fifo_fold": fifo_fold.LAUNCHES}
     # host launches: for each of the two graphs (K and 1) the warm-up
     # before its capture, and the capture
     if graph.captured_launches["commit_phase"] != K or \
-            launches != {"commit_phase": 2 * (K + 1), "evaluate_quorum": 0}:
+            launches != {"commit_phase": 2 * (K + 1), "evaluate_quorum": 0,
+                         "slot_fold": 0, "fifo_fold": 0}:
         raise AssertionError(f"superstep path launches {launches}, "
                              f"captured {graph.captured_launches}; want "
                              f"{K + 1} warm-up and {K + 1} captured "
-                             "commit_phase launches and no evaluate_quorum")
+                             "commit_phase launches and no other kernel")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     # settle the last confirms with an empty block, then check
     drv.submit(np.zeros((K, N), np.int32), p_blk)
@@ -664,6 +738,7 @@ def phase_superstep_path(pq, cpm, LockstepEngine, CounterMachine,
           "committed_cmds_per_s": (committed1 - committed0) / seconds,
           "window_syncs": pc["window_syncs"],
           "window_wait_ms_per_dispatch": window_wait_ms,
+          "host_graph_call_ms": graph_call,
           "dispatches": pc["superstep_dispatches"],
           "graph_captures_timed": captures, "graph_recaptures": recaptures,
           "capture_ms": graph.capture_ms,
@@ -858,6 +933,7 @@ def phase_durable_path(pq, cpm, CounterMachine, DispatchAheadDriver,
                        volatile: dict, n_lanes: int = 10_000) -> dict:
     from ra_tpu_torch.engine.durable import _BLK, _BLK2
     from ra_tpu_torch.log import faults
+    from ra_tpu_torch.ops import fifo_fold, slot_fold
     from ra_tpu_torch.step_profile import device_rows
     from ra_tpu_torch.wal_probe import fs_info
     N, P, cmds, K = n_lanes, 5, 128, 8
@@ -869,7 +945,7 @@ def phase_durable_path(pq, cpm, CounterMachine, DispatchAheadDriver,
     fs = fs_info(str(root))
     kw = dict(wal_shards=shards, sync_mode=1, max_pending=32,
               ring_capacity=1024, max_step_cmds=cmds, apply_window=130)
-    pq.LAUNCHES = cpm.LAUNCHES = 0
+    pq.LAUNCHES = cpm.LAUNCHES = slot_fold.LAUNCHES = fifo_fold.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
     eng = open_engine(CounterMachine(), str(root), N, P, device=dev, **kw)
     io_native = faults.IO._base.native      # native library or fallback
@@ -999,8 +1075,12 @@ def phase_durable_path(pq, cpm, CounterMachine, DispatchAheadDriver,
     eng.close()
     shutil.rmtree(root, ignore_errors=True)
     launches = {"commit_phase": cpm.LAUNCHES,
-                "evaluate_quorum": pq.LAUNCHES}
-    if launches["commit_phase"] == 0 or launches["evaluate_quorum"]:
+                "evaluate_quorum": pq.LAUNCHES,
+                "slot_fold": slot_fold.LAUNCHES,
+                "fifo_fold": fifo_fold.LAUNCHES}
+    if launches["commit_phase"] == 0 or any(
+            launches[k] for k in ("evaluate_quorum", "slot_fold",
+                                  "fifo_fold")):
         raise AssertionError(f"durable path launches {launches}")
     inner = timed * K
     ms = seconds / inner * 1e3
@@ -1166,6 +1246,752 @@ def phase_durable_diagnosis(CounterMachine, DispatchAheadDriver,
           "wal_shards": shards, "max_pending": 32, **runs})
 
 
+# -- the order-dependent machines --------------------------------------------
+
+def fold_commands(kind: str, rng, n: int, a: int, S: int) -> np.ndarray:
+    """A [n, a, C] window holding every op of the machine, out-of-range
+    keys, negative values and int32 overflow on add."""
+    shape = (n, a)
+    if kind == "fifo":
+        # consumer ops (7-11) name a few pids, so consumers own several
+        # rows when they are cancelled; settle and return name ids
+        op = rng.integers(0, 13, shape)
+        arg = np.where((op >= 7) & (op <= 11), rng.integers(-1, 6, shape),
+                       rng.integers(-1, 40, shape))
+        return np.stack([op, arg, rng.integers(0, 4, shape)],
+                        -1).astype(np.int32)
+    # small values, so that cas expectations match and -1 (delete on a
+    # matching cas) comes up; a few at the int32 edges
+    value = rng.integers(-3, 12, shape)
+    value = np.where(rng.random(shape) < 0.05,
+                     rng.choice([2 ** 31 - 1, -2 ** 31], shape), value)
+    last = rng.integers(-2, 12, shape)
+    if kind == "ttl_kv":
+        last = np.where(rng.random(shape) < 0.05, 2 ** 31 - 1, last)
+    return np.stack([rng.integers(0, 6, shape), rng.integers(-3, S + 3, shape),
+                     value, last], -1).astype(np.int32)
+
+
+def fold_operands(machine, kind, n, p, a, rng, dev, state=None):
+    """(meta, commands, mask, state) of one window on ``dev``: the lane's
+    commands through a stride-0 member axis, as the engine passes them."""
+    S = getattr(machine, "n_keys", getattr(machine, "n_slots", 0))
+    cmd = torch.from_numpy(fold_commands(kind, rng, n, a, S)).to(dev)
+    cmds = cmd[:, None].expand((n, p) + cmd.shape[1:])
+    mask = torch.from_numpy(rng.random((n, p, a)) < 0.9).to(dev)
+    index = torch.from_numpy((rng.integers(0, 4, (n, 1, a)) +
+                              np.arange(a) * 3).astype(np.int32))
+    meta = {"index": index.to(dev).expand(n, p, a),
+            "term": torch.ones((n, 1, 1), dtype=torch.int32, device=dev)}
+    if state is None:
+        from ra_tpu_torch.core.tree import tree_map
+        state = tree_map(lambda x: x[:, None].expand(
+            (n, p) + x.shape[1:]).contiguous(), machine.jit_init(n, dev))
+    return meta, cmds, mask, state
+
+
+def fold_bytes(meta, cmds, mask, state, kind) -> int:
+    """What the in-order fold must move: each state leaf read and written
+    once, the lane's commands once (shared by its members), the mask, and
+    for TTL-KV the lane's index row."""
+    from ra_tpu_torch.core.tree import tree_leaves
+    n, p, a, c = cmds.shape
+    state_b = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    idx_b = n * a * 4 if kind == "ttl_kv" else 0
+    return 2 * state_b + n * a * c * 4 + n * p * a + idx_b
+
+
+def phase_fold_kernels(dev) -> list:
+    """Each fold kernel against its plain version (the machine's
+    sequential_window_fold, on the card): at the full widths of the fifo
+    and kv paths and at ragged shapes (N not a multiple of the 128-row
+    block, P = 1, 3, 7, 16, A = 1, A > Q), every op, both FIFO overflow
+    policies.  Then each timed at its path's width."""
+    from ra_tpu_torch.core.tree import tree_leaves, tree_map
+    from ra_tpu_torch.models import JitFifoMachine, JitKvMachine, \
+        RegisterMachine, TtlKvMachine
+    from ra_tpu_torch.ops import _fold, fifo_fold, slot_fold
+    cases = {
+        "registers": (lambda: RegisterMachine(8), "registers", slot_fold,
+                      [(10_000, 5, 130), (1_001, 1, 1), (300, 7, 20)]),
+        "kv": (lambda: JitKvMachine(64), "kv", slot_fold,
+               [(10_000, 5, 130), (1_001, 3, 40), (129, 16, 33)]),
+        "ttl_kv": (lambda: TtlKvMachine(64), "ttl_kv", slot_fold,
+                   [(10_000, 5, 130), (1_001, 1, 1), (300, 7, 20)]),
+        "fifo_reject": (lambda: JitFifoMachine(256, 8, 4), "fifo",
+                        fifo_fold, [(5_000, 5, 130)]),
+        "fifo_drop_head": (lambda: JitFifoMachine(256, 8, 4, "drop_head"),
+                           "fifo", fifo_fold, [(5_000, 5, 130)]),
+        "fifo_small": (lambda: JitFifoMachine(16, 4, 2), "fifo", fifo_fold,
+                       [(1_001, 3, 40), (129, 16, 1), (300, 1, 64)]),
+        "fifo_small_drop_head": (
+            lambda: JitFifoMachine(16, 4, 2, "drop_head"), "fifo",
+            fifo_fold, [(1_001, 7, 40), (33, 16, 20)]),
+    }
+    checks, timed = [], {}
+    for case, (make, kind, mod, shapes) in cases.items():
+        m = make()
+        for n, p, a in shapes:
+            rng = np.random.default_rng(n + p + a)
+            state, err, windows = None, 0, 3
+            for w in range(windows):
+                meta, cmds, mask, state = fold_operands(m, kind, n, p, a,
+                                                        rng, dev, state)
+                want = m.sequential_window_fold(meta, cmds, mask, state)
+                before = mod.LAUNCHES
+                got = m.in_order_fold(meta, cmds, mask, state)
+                torch.cuda.synchronize()
+                if mod.LAUNCHES != before + 1:
+                    raise AssertionError(f"{case}: {mod.LAUNCHES - before} "
+                                         "launches for one call")
+                for g, t in zip(tree_leaves(got), tree_leaves(want)):
+                    err = max(err, int((g.long() - t.long()).abs().max()))
+                    if g.dtype != t.dtype or not torch.equal(g, t):
+                        raise AssertionError(
+                            f"{case} fold kernel != plain version at "
+                            f"{(n, p, a)} window {w}")
+                state = want
+            checks.append({"case": case, "shape": [n, p, a],
+                           "windows": windows, "exact": True,
+                           "max_abs_err": err})
+        # time the kernel alone at the path's width, on operands prepared
+        # once
+        n, p, a = shapes[0]
+        if case not in ("kv", "ttl_kv", "fifo_reject"):
+            continue
+        rng = np.random.default_rng(7)
+        meta, cmds, mask, state = fold_operands(m, kind, n, p, a, rng, dev)
+        c, k_, i_, st, out_k, _out = _fold.kernel_operands(
+            meta, cmds, mask, state)
+        if kind == "fifo":
+            def call():
+                fifo_fold.fifo_fold_cuda(c, k_, st, out_k, drop_head=False)
+        else:
+            def call():
+                slot_fold.slot_fold_cuda(kind, c, k_, i_, st, out_k)
+        n_bytes = fold_bytes(meta, cmds, mask, state, kind)
+        bound_ms, bound_by = bound(n_bytes, n * p * a * 16)
+        timed[case] = {
+            "shape": [n, p, a], "kernel_ms": cuda_ms(call, reps=50),
+            "kernel_graph_ms": graph_ms(call, reps=50),
+            "plain_ms": cuda_ms(lambda: m.sequential_window_fold(
+                meta, cmds, mask, state), reps=3, warmup=1),
+            "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": bound_by}
+    # the vectorised fast fold (torch ops) against the kernel on the same
+    # window, the paths' bench windows: clean windows, where the
+    # reference takes the fast fold and the card runs the kernel
+    rng = np.random.default_rng(8)
+    fifo_rows = np.zeros((130, 3), np.int32)
+    fifo_rows[0::2] = (1, 7, 0)
+    fifo_rows[1::2] = (2, 0, 0)
+    windows = {
+        "kv": (JitKvMachine(64), 10_000, np.stack(
+            [rng.integers(1, 3, (10_000, 130)),
+             rng.integers(0, 64, (10_000, 130)),
+             rng.integers(0, 1000, (10_000, 130)),
+             np.zeros((10_000, 130))], -1).astype(np.int32)),
+        "fifo": (JitFifoMachine(256, 8, 4), 5_000,
+                 np.broadcast_to(fifo_rows, (5_000, 130, 3)))}
+    fast_vs_kernel = {}
+    for kind, (m, n, win) in windows.items():
+        cmd = torch.from_numpy(np.ascontiguousarray(win)).to(dev)
+        cmds = cmd[:, None].expand((n, 5) + cmd.shape[1:])
+        mask = torch.ones((n, 5, 130), dtype=torch.bool, device=dev)
+        meta = {"index": torch.arange(1, 131, dtype=torch.int32,
+                                      device=dev).expand(n, 5, 130),
+                "term": torch.ones((n, 1, 1), dtype=torch.int32,
+                                   device=dev)}
+        state = tree_map(lambda x: x[:, None].expand(
+            (n, 5) + x.shape[1:]).contiguous(), m.jit_init(n, dev))
+        fast = m._batch_fast(cmds, mask, state)
+        got = m.in_order_fold(meta, cmds, mask, state)
+        if any(not torch.equal(a, b) for a, b in
+               zip(tree_leaves(fast), tree_leaves(got))):
+            raise AssertionError(f"{kind}: fast fold != fold kernel on the "
+                                 "bench window")
+        c, k_, i_, st, out_k, _out = _fold.kernel_operands(
+            meta, cmds, mask, state)
+        if kind == "fifo":
+            def call():
+                fifo_fold.fifo_fold_cuda(c, k_, st, out_k, drop_head=False)
+        else:
+            def call():
+                slot_fold.slot_fold_cuda(kind, c, k_, i_, st, out_k)
+        fast_vs_kernel[kind] = {
+            "shape": [n, 5, 130], "equal": True,
+            "fast_fold_ms": cuda_ms(lambda: m._batch_fast(cmds, mask, state),
+                                    reps=20, warmup=2),
+            "kernel_ms": cuda_ms(call, reps=50)}
+    emit({"phase": "fold_kernels", "checks": checks, "timed": timed,
+          "bench_window_fast_fold_vs_kernel": fast_vs_kernel})
+    out = []
+    for name, case, src, replaces in (
+            ("slot_fold", "kv", "ra_tpu_torch/ops/csrc/slot_fold.cu",
+             "ra_tpu/core/machine.py:252"),
+            ("fifo_fold", "fifo_reject", "ra_tpu_torch/ops/csrc/fifo_fold.cu",
+             "ra_tpu/core/machine.py:252")):
+        t = timed[case]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces,
+                    "exact": True,
+                    "max_abs_err": max(c["max_abs_err"] for c in checks),
+                    "shape": t["shape"], "ms": t["kernel_ms"],
+                    "kernel_ms": t["kernel_ms"],
+                    "kernel_graph_ms": t["kernel_graph_ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bytes": t["bytes"], "bound_by": t["bound_by"],
+                    # no single PyTorch call computes a machine's fold
+                    "library_ms": None})
+    out[0]["ttl_kv"] = timed["ttl_kv"]
+    return out
+
+
+def parity_payloads(name: str, rng, k: int, n: int, kc: int) -> np.ndarray:
+    """[k, n, kc, C] blocks for ``phase_machine_parity``."""
+    shape = (k, n, kc)
+    if name == "fifo":
+        # consumer mix on every lane: enqueues, dequeues, checkouts,
+        # settles, returns, cancels and credit over small ids and pids
+        op = rng.choice([1, 1, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 10, 11], shape)
+        return np.stack([op, rng.integers(0, 12, shape),
+                         rng.integers(0, 4, shape)], -1).astype(np.int32)
+    if name in ("sequential", "float"):
+        return rng.integers(-9, 10, shape + (1,)).astype(np.int32)
+    op = rng.integers(0, 6, shape)
+    return np.stack([op, rng.integers(-2, 18, shape),
+                     rng.integers(-2, 60, shape),
+                     rng.integers(-1, 6, shape)], -1).astype(np.int32)
+
+
+def parity_machines():
+    """(name, make, fold kernel module or None, reads) for the parity
+    phase: the four machines, a supports_batch_apply=False counter and a
+    float-state machine (the reference's test_scan_machine_float_state_
+    exact), both on the sequential apply path."""
+    from ra_tpu_torch.core.machine import JitMachine
+    from ra_tpu_torch.models import CounterMachine, JitFifoMachine, \
+        JitKvMachine, RegisterMachine, TtlKvMachine
+    from ra_tpu_torch.ops import fifo_fold, slot_fold
+
+    class Sequential(CounterMachine):
+        supports_batch_apply = False
+
+    class FloatAcc(JitMachine):
+        command_spec = ("int32", (1,))
+        supports_batch_apply = False
+
+        def jit_init(self, n_lanes, device):
+            return torch.zeros((n_lanes,), dtype=torch.float32,
+                               device=device)
+
+        def jit_apply(self, meta, command, state):
+            new = state + command[..., 0].to(torch.float32) * 0.5
+            return new, new
+
+    return [("registers", lambda: RegisterMachine(8), slot_fold, False),
+            ("kv", lambda: JitKvMachine(16), slot_fold, True),
+            ("ttl_kv", lambda: TtlKvMachine(16), slot_fold, True),
+            ("fifo", lambda: JitFifoMachine(16, 4, 2, "drop_head"),
+             fifo_fold, False),
+            ("sequential", Sequential, None, True),
+            ("float", FloatAcc, None, False)]
+
+
+def phase_machine_parity(LockstepEngine, state_to_numpy, dev) -> None:
+    """Each machine on a 64-step seeded schedule (failures, recovery,
+    elections inside dispatches, read batches): a card engine stepped
+    eagerly and a CPU engine compared after every step, and a card
+    engine replaying a K = 8 graph compared after every dispatch, every
+    LaneState leaf and aux key; the fold kernel launched once an eager
+    step and captured K times in the graph."""
+    from ra_tpu_torch.engine.lockstep import step_watermarks
+    from ra_tpu_torch.ops import fifo_fold, slot_fold
+    N, P, K, kc = 512, 5, 8, 8
+    kw = dict(write_delay=1, max_step_cmds=kc, ring_capacity=16,
+              apply_window=10, max_step_reads=4, lease_ttl=3,
+              read_timeout=6)
+    for name, make, mod, reads in parity_machines():
+        graph, eager = (LockstepEngine(make(), N, P, device=dev, **kw)
+                        for _ in range(2))
+        cpu = LockstepEngine(make(), N, P, device="cpu", **kw)
+        engines = (graph, eager, cpu)
+        rng = np.random.default_rng(len(name))
+        failed, eager_launches = [], []
+        for d in range(8):
+            leader = cpu.state.leader_slot.numpy()
+            heal = [(lane, slot) for lane, slot in failed
+                    if slot != leader[lane]]
+            if heal:
+                lanes, slots = zip(*heal)
+                for e in engines:
+                    e.recover_members(list(lanes), list(slots))
+            lanes = rng.choice(N, size=32, replace=False)
+            failed = [(int(lane), int(leader[lane])) for lane in lanes[:16]]
+            failed += [(int(lane), (int(leader[lane]) + 1) % P)
+                       for lane in lanes[16:]]
+            for e in engines:
+                for lane, slot in failed:
+                    e.fail_member(lane, slot)
+            n_new = rng.integers(0, kc + 1, (K, N)).astype(np.int32)
+            pay = parity_payloads(name, rng, K, N, kc)
+            elect = np.zeros((K, N), bool)
+            elect[3, lanes[:16]] = True
+            elect[6] = rng.random(N) < 0.05
+            sched = {"elect_blk": elect,
+                     "query_blk": rng.random((K, N)) < 0.2}
+            if reads and d % 3 == 1:
+                n_read = np.zeros((K, N), np.int32)
+                n_read[0] = rng.integers(0, 5, N)
+                sched["n_read_blk"] = n_read
+                sched["read_q_blk"] = np.stack(
+                    [rng.integers(0, 3, (K, N, 4)),
+                     rng.integers(-1, 17, (K, N, 4))], -1).astype(np.int32) \
+                    if name != "sequential" else \
+                    np.zeros((K, N, 4, 1), np.int32)
+            names = {"elect_blk": "elect_mask", "query_blk": "query_mask",
+                     "n_read_blk": "n_read", "read_q_blk": "read_q"}
+            auxes = []
+            for j in range(K):
+                step_kw = {names[k]: v[j] for k, v in sched.items()}
+                before = mod.LAUNCHES if mod else 0
+                aux_e = eager.step(n_new[j], pay[j], **step_kw)
+                eager_launches.append((mod.LAUNCHES if mod else 0) - before)
+                aux_c = cpu.step(n_new[j], pay[j], **step_kw)
+                assert_same(eager, cpu, aux_e, aux_c,
+                            f"{name} dispatch {d} step {j}", state_to_numpy)
+                auxes.append({**aux_c, **step_watermarks(cpu.state)})
+            aux_g = graph.superstep(n_new, pay, **sched)
+            torch.cuda.synchronize()
+            want = {k: torch.stack([a[k] for a in auxes]).numpy()
+                    for k in auxes[0]}
+            assert_arrays(host_aux(aux_g), want, f"{name} dispatch {d} "
+                          "graph aux")
+            assert_arrays(state_to_numpy(graph.state),
+                          state_to_numpy(cpu.state),
+                          f"{name} dispatch {d} graph state")
+        want_launch = 1 if mod else 0
+        if set(eager_launches) != {want_launch}:
+            raise AssertionError(f"{name}: fold launches a step "
+                                 f"{sorted(set(eager_launches))}")
+        captured = [g.captured_launches for g in
+                    graph._graphs._graphs.values()]
+        for c in captured:
+            if c["commit_phase"] != K or \
+                    c["slot_fold"] != (K if mod is slot_fold else 0) or \
+                    c["fifo_fold"] != (K if mod is fifo_fold else 0):
+                raise AssertionError(f"{name}: captured launches {c}")
+        st = cpu.state
+        if int(st.telem.leader_changes.sum()) == 0 or \
+                cpu.committed_total() == 0 or \
+                (reads and int(st.read_served.sum()) == 0):
+            raise AssertionError(f"{name}: the schedule moved no leader, "
+                                 "committed nothing or served no read")
+        emit({"phase": "machine_parity", "machine": name,
+              "engine_machine": graph.overview(0)["machine"],
+              "lanes": N, "members": P, "superstep_k": K,
+              "steps": 8 * K, "equal_every_step": True,
+              "graph_equal_every_dispatch": True,
+              "fold_launches_per_eager_step": want_launch,
+              "captured_launches": captured,
+              "leader_changes": int(st.telem.leader_changes.sum()),
+              "committed": cpu.committed_total(),
+              "reads_served": int(st.read_served.sum())})
+
+
+class FifoOracle:
+    """A plain model of one lane's JitFifoMachine for ops 0-5 under the
+    reject policy: the ring, written slot by slot as the machine writes
+    it, so the whole state (stale slots included) can be compared."""
+
+    def __init__(self, Q: int, K: int, C: int) -> None:
+        self.Q, self.C = Q, C
+        self.buf, self.dc, self.mid = [0] * Q, [0] * Q, [0] * Q
+        self.co_id = [-1] * K
+        self.co_val, self.co_dc, self.co_mid = [0] * K, [0] * K, [0] * K
+        self.co_owner = [0] * K
+        self.head = self.tail = self.next_id = self.next_mid = 0
+        self.admitted = 0
+
+    def apply(self, op: int, a: int) -> None:
+        Q = self.Q
+        size = self.tail - self.head
+        checked = sum(i >= 0 for i in self.co_id)
+        if op == 1 and size + checked < Q:
+            s = self.tail % Q
+            self.buf[s], self.dc[s], self.mid[s] = a, 0, self.next_mid
+            self.tail += 1
+            self.next_mid += 1
+            self.admitted += 1
+        elif op == 2 and size > 0:
+            self.head += 1
+        elif op == 3 and size > 0 and -1 in self.co_id:
+            k, s = self.co_id.index(-1), self.head % Q
+            self.co_val[k], self.co_dc[k] = self.buf[s], self.dc[s]
+            self.co_mid[k], self.co_owner[k] = self.mid[s], self.C
+            self.co_id[k] = self.next_id
+            self.next_id += 1
+            self.head += 1
+        elif op in (4, 5) and a >= 0 and a in self.co_id:
+            k = self.co_id.index(a)
+            self.co_id[k] = -1
+            if op == 5:        # back into the ready window at ticket rank
+                ready = [((self.head + j) % Q) for j in range(size)]
+                ready = [(self.buf[s], self.dc[s], self.mid[s])
+                         for s in ready]
+                item = (self.co_val[k], self.co_dc[k] + 1, self.co_mid[k])
+                ready.insert(sum(m < item[2] for _v, _d, m in ready), item)
+                self.head -= 1
+                for j, (v, d, m) in enumerate(ready):
+                    s = (self.head + j) % Q
+                    self.buf[s], self.dc[s], self.mid[s] = v, d, m
+        elif op not in (0, 1, 2, 3, 4, 5):
+            raise ValueError(f"op {op} is not modelled")
+
+    def state(self) -> dict:
+        """The machine's state leaves for one lane (numpy int32)."""
+        return {k: np.asarray(v, np.int32) for k, v in {
+            "buf": self.buf, "dc": self.dc, "mid": self.mid,
+            "head": self.head, "tail": self.tail, "co_id": self.co_id,
+            "co_val": self.co_val, "co_dc": self.co_dc,
+            "co_mid": self.co_mid, "co_owner": self.co_owner,
+            "next_id": self.next_id, "next_mid": self.next_mid,
+            "n_dropped": 0, "con_pid": [-1] * self.C,
+            "con_credit": [0] * self.C}.items()}
+
+
+def kv_oracle(pattern: np.ndarray, steps: int, S: int) -> np.ndarray:
+    """A plain model of JitKvMachine: each lane's [L, 4] ``pattern`` of
+    commands applied ``steps`` times in order, vectorised over lanes;
+    returns the cells [N, S].  Stops early at a fixed point (a step that
+    leaves every cell as it found it leaves it so for good)."""
+    N, L, _ = pattern.shape
+    vals = np.full((N, S), -1, np.int32)
+    rows = np.arange(N)
+    for _ in range(steps):
+        before = vals.copy()
+        for j in range(L):
+            op, key, v, x = pattern[:, j].T
+            ok = (key >= 0) & (key < S)
+            k = np.clip(key, 0, S - 1)
+            cur = vals[rows, k]
+            put = (op == 1) & ok & (v >= 0)
+            dele = (op == 3) & ok
+            cas = (op == 4) & ok & (v >= -1) & (cur == x)
+            new = np.where(put, v, np.where(dele, -1, np.where(cas, v, cur)))
+            w = put | dele | cas
+            vals[rows[w], k[w]] = new[w]
+        if np.array_equal(vals, before):
+            break
+    return vals
+
+
+def ttl_oracle(pattern: np.ndarray, steps: int, S: int) -> dict:
+    """A plain model of TtlKvMachine over the same repeated pattern: the
+    log index of command j of step t is t * L + j + 1 (no elections, so
+    no term-opening noops); returns vals, exp, watch [N, S], clock [N]."""
+    N, L, _ = pattern.shape
+    vals = np.full((N, S), -1, np.int32)
+    exp = np.zeros((N, S), np.int32)
+    watch = np.zeros((N, S), np.int32)
+    rows = np.arange(N)
+    clock = 0
+    for t in range(steps):
+        for j in range(L):
+            clock = max(clock, t * L + j + 1)
+            op, key, v, ttl = pattern[:, j].T
+            ok = (key >= 0) & (key < S)
+            k = np.clip(key, 0, S - 1)
+            put = (op == 1) & ok & (v >= 0)
+            dele = (op == 3) & ok
+            wr = (op == 4) & ok
+            vals[rows[put], k[put]] = v[put]
+            exp[rows[put], k[put]] = np.where(
+                ttl[put] > 0, (clock + ttl[put].astype(np.int64)), 0
+            ).astype(np.int32)
+            vals[rows[dele], k[dele]] = -1
+            watch[rows[wr], k[wr]] += 1
+    return {"vals": vals, "exp": exp, "watch": watch,
+            "clock": np.full((N,), clock, np.int32)}
+
+
+def run_machine_path(phase: str, mix: str, machine, fold: str, blocks,
+                     check, LockstepEngine, DispatchAheadDriver,
+                     n_lanes: int, dev) -> dict:
+    """A machine's slice at full width: ``n_lanes`` x 5 members, ring
+    1,024, 128 commands a lane a step, apply window 130, volatile,
+    through DispatchAheadDriver at K = 8: 2 warm, 25 timed and 3 profiled
+    dispatches of ``blocks(d)`` (host numpy), one empty dispatch to
+    settle, then replica agreement and ``check(leaves, steps)`` (the
+    mix's plain model against the machine state leaves).  The fold kernel ``fold`` is captured once an inner
+    step.  Returns the launches of every kernel on the path."""
+    from ra_tpu_torch.ops import commit_phase, fifo_fold, pallas_quorum, \
+        slot_fold
+    from ra_tpu_torch.step_profile import device_rows
+    N, P, cmds, K = n_lanes, 5, 128, 8
+    warm, timed, profiled = 2, 25, 3
+    mods = {"evaluate_quorum": pallas_quorum, "commit_phase": commit_phase,
+            "slot_fold": slot_fold, "fifo_fold": fifo_fold}
+    kernel = f"{fold}_kernel"
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    eng = LockstepEngine(machine, N, P, ring_capacity=1024,
+                         max_step_cmds=cmds, apply_window=130,
+                         write_delay=1, device=dev)
+    drv = DispatchAheadDriver(eng, max_in_flight=2)
+    d = 0
+    for _ in range(warm):
+        drv.submit(*blocks(d))
+        d += 1
+    drv.drain()
+    torch.cuda.synchronize()
+    eng.phases.reset_reservoirs()
+    committed0 = eng.committed_total()
+
+    def timed_window(d0):
+        t0 = time.perf_counter()
+        for i in range(timed):
+            drv.submit(*blocks(d0 + i))
+        drv.drain()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    seconds, graph_call = traced(lambda: timed_window(d))
+    d += timed
+    committed1 = eng.committed_total()
+    phases = eng.phases.overview()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(profiled):
+            drv.submit(*blocks(d))
+            d += 1
+        drv.drain()
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t1
+    groups = device_rows(prof)
+    fold_rows = [e for e in groups["kernels"] if kernel in e.key]
+    executions = sum(e.count for e in fold_rows)
+    fold_ms = sum(e.self_device_time_total for e in fold_rows) / 1e3
+    kernel_ms = sum(e.self_device_time_total for e in groups["kernels"]) / 1e3
+    copy_ms = sum(e.self_device_time_total for e in groups["copies"]) / 1e3
+    top: dict = {}                  # device ms by kernel name, summed
+    for e in groups["kernels"]:
+        name = e.key[:80]
+        top[name] = top.get(name, 0.0) + e.self_device_time_total / 1e3
+    n_blk, p_blk = blocks(0)
+    drv.submit(np.zeros_like(n_blk), p_blk)        # settle the last commits
+    drv.drain()
+    drv.close()
+    steps = d * K
+    graph = next(iter(eng._graphs._graphs.values()))
+    # host launches: the warm-up run before the graph's capture, and the
+    # capture; replays launch nothing on the host
+    host = {name: mod.LAUNCHES for name, mod in mods.items()}
+    launches = {"host": host, "captured_per_graph": graph.captured_launches,
+                "profiled_executions": executions,
+                "profiled_inner_steps": profiled * K}
+    want = {name: 2 * K if name in ("commit_phase", fold) else 0
+            for name in mods}
+    if host != want or graph.captured_launches != {
+            k: v // 2 for k, v in want.items()} or \
+            executions != profiled * K:
+        raise AssertionError(f"{phase} {mix}: launches {launches}; want "
+                             f"{want} on the host and {K} {fold} a "
+                             "dispatch")
+    per_lane = eng.committed_per_lane()
+    if not (per_lane == cmds * steps).all():
+        raise AssertionError(f"{phase} {mix}: total_committed != "
+                             f"{cmds * steps} on "
+                             f"{int((per_lane != cmds * steps).sum())} lanes")
+    if not (eng.state.applied.cpu().numpy() == cmds * steps).all():
+        raise AssertionError(f"{phase} {mix}: not every member applied "
+                             "the whole log")
+    mac = eng.machine_states()
+    leaves = mac if isinstance(mac, dict) else {"cells": mac}
+    for k, v in leaves.items():       # replicas at equal applied agree
+        if not (v == v[:, :1]).all():
+            raise AssertionError(f"{phase} {mix}: replicas differ on {k}")
+    extra = check(leaves, steps)
+    inner = timed * K
+    ms = seconds / inner * 1e3
+    busy = (kernel_ms + copy_ms) / (profiled * K)
+    out = {"phase": phase, "mix": mix, "machine": eng.overview(0)["machine"],
+           "lanes": N, "members": P, "superstep_k": K,
+           "cmds_per_step": cmds, "timed_dispatches": timed,
+           "ms_per_inner_step": ms,
+           "committed_cmds_per_s": (committed1 - committed0) / seconds,
+           "host_graph_call_ms": graph_call,
+           "fold_kernel_launches": launches,
+           "fold_kernel_ms_per_inner_step": fold_ms / (profiled * K),
+           "device_busy_ms_per_inner_step": busy,
+           "d2d_copy_ms_per_dispatch": copy_ms / profiled,
+           "traced_ms_per_inner_step": traced_s / (profiled * K) * 1e3,
+           "device_idle_share_untraced": 1.0 - busy / ms,
+           "top_kernels_ms_per_inner_step": {
+               k: v / (profiled * K) for k, v in
+               sorted(top.items(), key=lambda kv: -kv[1])[:8]},
+           "device_kernels_per_inner_step": sum(
+               e.count for e in groups["kernels"]) / (profiled * K),
+           "phases_ms": {p: {q: phases[p][q] for q in ("p50_ms", "p99_ms")}
+                         for p in ("host_staging", "device_dispatch")},
+           "block_mb": p_blk.nbytes / 2**20,
+           "capture_ms": graph.capture_ms,
+           "graph_held_mb": graph.held_bytes / 2**20,
+           "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
+           "steps": steps, "replicas_agree": True, **extra}
+    emit(out)
+    del eng, drv, graph
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fifo_mixes(N: int, K: int = 8) -> list:
+    """The FIFO path's mixes, ``(mix, machine factory, blocks(d), check)``
+    over ``N`` lanes: (a) bench.py's alternation of enqueue 7 and
+    dequeue-settled (windows the reference's fast fold takes); (b) a
+    consumer mix: a lane's step is 32 repeats of (enqueue, enqueue,
+    dequeue-unsettled, settle of the id that dequeue got), every eighth
+    settle a return.  Ids are consecutive a lane, so the host knows them,
+    and every window needs the in-order fold.  On the card both take
+    fifo_fold.cu every window.  Every lane
+    runs the same commands; ``check`` holds the replicas against a plain
+    model of the queue."""
+    from ra_tpu_torch.models import JitFifoMachine
+    cmds = 128
+    bench = np.zeros((cmds, 3), np.int32)
+    bench[0::2] = (1, 7, 0)
+    bench[1::2] = (2, 0, 0)
+
+    def consumer_rows(s):
+        g = s * 32 + np.arange(32)               # repeats so far
+        rows = np.zeros((32, 4, 3), np.int32)
+        rows[:, 0, 0] = rows[:, 1, 0] = 1
+        rows[:, 0, 1] = g % 1000
+        rows[:, 1, 1] = (g + 500) % 1000
+        rows[:, 2, 0] = 3
+        rows[:, 3, 0] = np.where(g % 8 == 7, 5, 4)
+        rows[:, 3, 1] = g
+        return rows.reshape(cmds, 3)
+
+    def blocks_of(rows_of_step):
+        def blocks(d):
+            blk = np.stack([rows_of_step(d * K + j) for j in range(K)])
+            return (np.full((K, N), cmds, np.int32),
+                    np.broadcast_to(blk[:, None], (K, N, cmds, 3)))
+        return blocks
+
+    def checker(rows_of_step):
+        def check(leaves, steps):
+            oracle = FifoOracle(256, 8, 4)
+            for s in range(steps):
+                for op, a, _b in rows_of_step(s):
+                    oracle.apply(int(op), int(a))
+            for k, v in oracle.state().items():
+                got = leaves[k]
+                if got.dtype != v.dtype or not (got == v).all():
+                    raise AssertionError(f"fifo_path: {k} != the plain "
+                                         "model's")
+            if not (leaves["next_mid"] == oracle.admitted).all() or \
+                    not (leaves["tail"] == leaves["next_mid"]).all():
+                raise AssertionError("fifo_path: admitted enqueues != "
+                                     "next_mid")
+            return {"admitted_enqueues": oracle.admitted,
+                    "next_mid_equals_admitted": True,
+                    "equal_to_plain_model": True,
+                    "ready_depth": oracle.tail - oracle.head,
+                    "redelivered": sum(oracle.dc)}
+        return check
+
+    def make():
+        return JitFifoMachine(capacity=256, checkout_slots=8)
+
+    return [(mix, make, blocks_of(rows), checker(rows))
+            for mix, rows in (("a_bench", lambda s: bench),
+                              ("b_consumer", consumer_rows))]
+
+
+def phase_fifo_path(LockstepEngine, DispatchAheadDriver, dev,
+                    n_lanes: int = 5_000) -> dict:
+    """BASELINE.md's FIFO row through the driver: 5,000 x 5,
+    JitFifoMachine(256, 8), the two mixes of ``fifo_mixes``."""
+    return {mix: run_machine_path(
+        "fifo_path", mix, make(), "fifo_fold", blocks, check,
+        LockstepEngine, DispatchAheadDriver, n_lanes, dev)
+        for mix, make, blocks, check in fifo_mixes(n_lanes)}
+
+
+def kv_mixes(N: int, K: int = 8) -> list:
+    """The KV path's mixes, ``(mix, machine factory, blocks(d), check)``
+    over ``N`` lanes: (a) bench.py's put/get mix on JitKvMachine(64) (the
+    reference's fast fold); (b) the same with every 16th command a cas of
+    the key's last put value (the in-order fold); (c) TtlKvMachine(64)
+    with put (ttl 0-64), get, delete and watch (always the in-order
+    fold).  On the card every window of every mix takes slot_fold.cu.
+    Each lane repeats its own 128
+    commands every step; ``check`` holds the replicas against a plain
+    model (for TTL-KV on 512 sampled lanes)."""
+    from ra_tpu_torch.models import JitKvMachine, TtlKvMachine
+    cmds, S = 128, 64
+    rng = np.random.default_rng(0)
+    bench = np.zeros((N, cmds, 4), np.int32)
+    bench[..., 0] = rng.integers(1, 3, (N, cmds))        # put/get
+    bench[..., 1] = rng.integers(0, 64, (N, cmds))
+    bench[..., 2] = rng.integers(0, 1000, (N, cmds))
+    cas = bench.copy()
+    last = np.full((N, S), -1, np.int32)      # a key's last put so far
+    lanes = np.arange(N)
+    for j in range(cmds):
+        op, key, v = cas[:, j, 0], cas[:, j, 1], cas[:, j, 2]
+        if j % 16 == 15:
+            cas[:, j] = np.stack([np.full(N, 4), key, (v + 1) % 1000,
+                                  last[lanes, key]], -1)
+        else:
+            put = op == 1
+            last[lanes[put], key[put]] = v[put]
+    ttl = np.stack([rng.choice([1, 1, 2, 3, 4], (N, cmds)),
+                    rng.integers(0, 64, (N, cmds)),
+                    rng.integers(0, 1000, (N, cmds)),
+                    rng.integers(0, 65, (N, cmds))], -1).astype(np.int32)
+    sample = np.linspace(0, N - 1, min(N, 512)).astype(np.int64)
+
+    def blocks_of(pattern):
+        return lambda d: (np.full((K, N), cmds, np.int32),
+                          np.broadcast_to(pattern, (K, N, cmds, 4)))
+
+    def kv_check(pattern):
+        def check(leaves, steps):
+            want = kv_oracle(pattern, steps, S)
+            if not (leaves["cells"] == want[:, None]).all():
+                raise AssertionError("kv_path: cells != the plain model's")
+            return {"equal_to_plain_model": True,
+                    "present_cells": int((want >= 0).sum())}
+        return check
+
+    def ttl_check(leaves, steps):
+        want = ttl_oracle(ttl[sample], steps, S)
+        for k, v in want.items():
+            if not (leaves[k][sample] == v[:, None]).all():
+                raise AssertionError(f"kv_path ttl: {k} != the plain "
+                                     "model's")
+        return {"equal_to_plain_model_lanes": len(sample),
+                "clock": int(want["clock"][0])}
+
+    return [("a_bench", lambda: JitKvMachine(S), blocks_of(bench),
+             kv_check(bench)),
+            ("b_cas", lambda: JitKvMachine(S), blocks_of(cas),
+             kv_check(cas)),
+            ("c_ttl_kv", lambda: TtlKvMachine(S), blocks_of(ttl),
+             ttl_check)]
+
+
+def phase_kv_path(LockstepEngine, DispatchAheadDriver, dev,
+                  n_lanes: int = 10_000) -> dict:
+    """10,000 x 5 through the driver, the three mixes of ``kv_mixes``."""
+    return {mix: run_machine_path(
+        "kv_path", mix, make(), "slot_fold", blocks, check,
+        LockstepEngine, DispatchAheadDriver, n_lanes, dev)
+        for mix, make, blocks, check in kv_mixes(n_lanes)}
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1204,6 +2030,7 @@ def main() -> int:
 
     kernels = [phase_quorum_kernel(pq, quorum, dev),
                phase_commit_phase_kernel(cpm, dev)]
+    fold_kernels = phase_fold_kernels(dev)
     phase_parity(pq, cpm, LockstepEngine, CounterMachine, state_to_numpy,
                  dev)
     launches = phase_main_path(pq, cpm, LockstepEngine, CounterMachine, dev)
@@ -1223,11 +2050,30 @@ def main() -> int:
                                 open_engine, trace, dev)
     finally:
         shutil.rmtree(WAL_ROOT, ignore_errors=True)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["launches_superstep_path"] = ss_launches[k["name"]]
-        k["launches_durable_path"] = dur_launches[k["name"]]
-    emit({"kernels": kernels})
+    phase_machine_parity(LockstepEngine, state_to_numpy, dev)
+    fifo_launches = phase_fifo_path(LockstepEngine, DispatchAheadDriver, dev)
+    kv_launches = phase_kv_path(LockstepEngine, DispatchAheadDriver, dev)
+    # launches of each kernel on each path, each counted from 0 just
+    # before its path; "launches" is the count on the kernel's own path
+    # (the main path for the commit phase and the quorum, the fifo path's
+    # consumer mix and the kv path's cas mix for the two folds)
+    folds = {"slot_fold": kv_launches["b_cas"],
+             "fifo_fold": fifo_launches["b_consumer"]}
+    for k in kernels + fold_kernels:
+        name = k["name"]
+        k["launches_main_path"] = launches[name]
+        k["launches_superstep_path"] = ss_launches[name]
+        k["launches_durable_path"] = dur_launches[name]
+        k["launches_fifo_path"] = {mix: v["host"][name]
+                                   for mix, v in fifo_launches.items()}
+        k["launches_kv_path"] = {mix: v["host"][name]
+                                 for mix, v in kv_launches.items()}
+        if name in folds:
+            k["launches"] = folds[name]["host"][name]
+            k["executions_profiled"] = folds[name]["profiled_executions"]
+        else:
+            k["launches"] = launches[name]
+    emit({"kernels": kernels + fold_kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

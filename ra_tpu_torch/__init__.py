@@ -23,6 +23,10 @@ _EXPORTS = {
     "open_engine": "ra_tpu_torch.engine.durable",
     "TelemetrySampler": "ra_tpu_torch.telemetry",
     "CounterMachine": "ra_tpu_torch.models.counter",
+    "JitFifoMachine": "ra_tpu_torch.models.jit_fifo",
+    "JitKvMachine": "ra_tpu_torch.models.jit_kv",
+    "RegisterMachine": "ra_tpu_torch.models.registers",
+    "TtlKvMachine": "ra_tpu_torch.models.ttl_kv",
     "JitMachine": "ra_tpu_torch.core.machine",
     "resolve_device": "ra_tpu_torch.device",
 }

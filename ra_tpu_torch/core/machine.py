@@ -6,6 +6,15 @@ a tree (see ``core.tree``) of fixed-shape tensors with leading lane
 dims; every method is a pure function of its tensor arguments with no
 data-dependent host control flow, so a step never waits on the device.
 The host ``Machine`` bridge of the reference is not part of the port.
+
+The reference picks a window fold's branch with ``lax.cond``
+(``cond_concrete``); a step here never reads a tensor on the host
+(``bool(tensor)`` would wait for the device, and cannot be captured in a
+CUDA graph).  On a card :meth:`JitMachine.window_fold_dispatch` needs no
+branch: the machine's fold kernel folds every window in order, which the
+fast fold equals wherever it is valid.  On the CPU it keeps the
+reference's choice, with :func:`cond_select` computing both branches and
+selecting on the tensor.
 """
 from __future__ import annotations
 
@@ -14,6 +23,24 @@ from typing import Any, Optional
 import torch
 
 from .tree import tree_map
+
+
+def cond_select(pred, on_true, on_false):
+    """The reference's ``cond_concrete(pred, ...)`` over two computed
+    trees: leaf-wise ``torch.where(pred, t, f)`` on a bool scalar
+    tensor, with no host sync."""
+    return tree_map(lambda t, f: torch.where(pred, t, f), on_true, on_false)
+
+
+def encode_i32(values) -> torch.Tensor:
+    """An encoded host command or query: an int32 tensor of Python ints.
+    A value outside int32 raises OverflowError, as the reference's
+    ``jnp.asarray(..., jnp.int32)`` does (its encoders turn that into a
+    noop)."""
+    for v in values:
+        if not -2 ** 31 <= v < 2 ** 31:
+            raise OverflowError(f"{v} does not fit int32")
+    return torch.tensor(values, dtype=torch.int32)
 
 
 class JitMachine:
@@ -51,6 +78,22 @@ class JitMachine:
         bool``[..., A]`` (True = apply), state leading dims = the ``...``
         prefix.  Returns the new state.  Default: the sequential fold."""
         return self.sequential_window_fold(meta, commands, mask, state)
+
+    def window_fold_dispatch(self, meta, commands, mask, state):
+        """``jit_apply_batch`` for a machine with a fold kernel (its
+        :meth:`in_order_fold`, the kernel's dispatcher) and a vectorised
+        fold of the common window, ``self._batch_fast(commands, mask,
+        state)``, valid where the bool scalar ``self._fast_ok(commands,
+        mask)`` holds over the whole batch.  On a card the kernel alone
+        folds every window: where the fast fold is valid the two agree,
+        and the kernel is the faster at the full-width windows (PERF.md).
+        On the CPU the reference's cond: both folds run and the fast one
+        is kept where ``_fast_ok``."""
+        folded = self.in_order_fold(meta, commands, mask, state)
+        if mask.device.type != "cpu":
+            return folded
+        return cond_select(self._fast_ok(commands, mask),
+                           self._batch_fast(commands, mask, state), folded)
 
     def sequential_window_fold(self, meta, commands, mask, state):
         """Masked in-order fold of :meth:`jit_apply` over the window axis,

@@ -34,8 +34,12 @@ after every step and dispatch equals the JAX engine's on the same inputs
 (``tests/test_torch_engine.py``, ``tests/test_torch_superstep.py``).
 ``step`` and ``superstep`` never read the device back and never wait
 on it: host masks and the confirm horizon are numpy data, copied to the
-device from pinned memory without blocking.  The sequential-machine
-apply path is not ported yet.
+device from pinned memory without blocking.  Step 5 folds each member's
+window with the machine's ``jit_apply_batch`` (on the card the
+order-dependent machines' in-order folds are the kernels of
+``ops.slot_fold`` and ``ops.fifo_fold``), or, for a machine with
+``supports_batch_apply=False``, runs the reference's lane-representative
+fold (``_apply_sequential``).
 """
 from __future__ import annotations
 
@@ -48,10 +52,10 @@ import torch
 from .. import devicewatch, trace
 from ..convert import state_from_numpy, state_to_numpy
 from ..core.machine import JitMachine
-from ..core.tree import tree_map
+from ..core.tree import tree_leaves, tree_map, tree_unflatten
 from ..device import DeviceLike, resolve_device
 from ..metrics import ENGINE_PIPELINE_FIELDS, TELEMETRY_FIELDS
-from ..ops import commit_phase, pallas_quorum
+from ..ops import commit_phase, fifo_fold, pallas_quorum, slot_fold
 from ..ops.commit_phase import commit_phase_dispatch
 from ..ops.quorum import election_quorum, pipeline_credit
 from ..readback import Readback
@@ -268,11 +272,6 @@ def _step(state: LaneState, n_new: Tensor, payloads: Tensor,
     step's accepted rows compacted for the WAL (``flat_rows``
     [N*K, C], ``row_csum`` int32[N]).  Without ``durable`` it is not
     read."""
-    if not machine.supports_batch_apply:
-        raise NotImplementedError(
-            "the port's apply fold needs a machine with "
-            "supports_batch_apply=True; sequential machines are not "
-            "ported yet")
     N, P = state.last_index.shape
     R = ring_capacity
     dev = state.term.device
@@ -397,12 +396,17 @@ def _step(state: LaneState, n_new: Tensor, payloads: Tensor,
     a_idx = torch.arange(A, dtype=I32, device=dev)
     idx_lane = base[:, None] + 1 + a_idx[None, :]              # [N,A]
     cmds_lane = _ring_read_window(ring, idx_lane)              # [N,A,C]
-    idx = idx_lane[:, None, :]                                 # [N,1,A]
-    do = (idx > applied0[..., None]) & (idx <= apply_to[..., None]) \
-        & active[..., None]                                    # [N,P,A]
-    cmds = cmds_lane[:, None].expand(do.shape + cmds_lane.shape[-1:])
-    meta = {"index": idx.expand(do.shape), "term": term[:, None, None]}
-    mac = machine.jit_apply_batch(meta, cmds, do, state.mac)
+    if machine.supports_batch_apply:
+        # one masked window fold a member, in order (machine-managed)
+        idx = idx_lane[:, None, :]                             # [N,1,A]
+        do = (idx > applied0[..., None]) & (idx <= apply_to[..., None]) \
+            & active[..., None]                                # [N,P,A]
+        cmds = cmds_lane[:, None].expand(do.shape + cmds_lane.shape[-1:])
+        meta = {"index": idx.expand(do.shape), "term": term[:, None, None]}
+        mac = machine.jit_apply_batch(meta, cmds, do, state.mac)
+    else:
+        mac = _apply_sequential(machine, state.mac, cmds_lane, base, term,
+                                applied0, apply_to, active)
     applied = torch.where(
         active,
         torch.maximum(applied0,
@@ -483,6 +487,42 @@ def _step(state: LaneState, n_new: Tensor, payloads: Tensor,
         aux["flat_rows"], aux["row_csum"] = _compact_accepted(
             payloads.to(ring.dtype), n_acc)
     return new_state, aux
+
+
+def _apply_sequential(machine: JitMachine, mac, cmds_lane: Tensor,
+                      base: Tensor, term: Tensor, applied0: Tensor,
+                      apply_to: Tensor, active: Tensor):
+    """Step 5 for a machine with ``supports_batch_apply=False``: the
+    reference's lane-representative scan.  Every active member of a lane
+    applies the same committed commands in order, so the fold runs once a
+    lane, on the state of the first active member at the lane's apply
+    frontier, as A ``jit_apply`` calls on [N, ...] state; each member then
+    takes the state of the trajectory at its own offset
+    ``apply_to - base`` (0 = nothing applied this step).  The select is a
+    gather for every dtype: exact, and free of the 0 * Inf poisoning a
+    one-hot product would bring into float state."""
+    N, P = applied0.shape
+    A = cmds_lane.shape[1]
+    sel = torch.argmax((active & (applied0 == base[:, None])).to(torch.uint8),
+                       dim=-1)                                 # [N]
+    mac_lane = tree_map(lambda x: _take(x, sel), mac)
+    traj = [tree_leaves(mac_lane)]
+    for a in range(A):
+        mac_lane, _reply = machine.jit_apply(
+            {"index": base + 1 + a, "term": term}, cmds_lane[:, a], mac_lane)
+        traj.append(tree_leaves(mac_lane))
+    off = torch.clamp(apply_to - base[:, None], 0, A).long()   # [N,P]
+
+    def select(j, old):
+        stk = torch.stack([t[j] for t in traj], dim=1)         # [N,A+1,...]
+        tail = stk.shape[2:]
+        idx = off.reshape((N, P) + (1,) * len(tail)).expand((N, P) + tail)
+        picked = torch.gather(stk, 1, idx)
+        m = active.reshape((N, P) + (1,) * len(tail))
+        return torch.where(m, picked, old)
+
+    return tree_unflatten(mac, (select(j, old) for j, old in
+                                enumerate(tree_leaves(mac))))
 
 
 def _compact_accepted(payloads: Tensor, n_acc: Tensor):
@@ -868,7 +908,9 @@ class LockstepEngine:
         g = self._graphs.get(
             key, fn, args, self.device,
             lambda: {"commit_phase": commit_phase.LAUNCHES,
-                     "evaluate_quorum": pallas_quorum.LAUNCHES})
+                     "evaluate_quorum": pallas_quorum.LAUNCHES,
+                     "slot_fold": slot_fold.LAUNCHES,
+                     "fifo_fold": fifo_fold.LAUNCHES})
         if g.captured_launches["commit_phase"] != k:
             raise RuntimeError(
                 f"the superstep graph captured "
@@ -1177,6 +1219,7 @@ class LockstepEngine:
             "active": s.active[lane].tolist(),
             "total_committed": int(s.total_committed[lane]),
             "device": str(self.device),
+            "machine": type(self.machine).__name__,
         }
         # the dispatch pipeline: the last fused K, the attached driver's
         # stage-ahead depth and live in-flight count, and the counters

@@ -1,3 +1,8 @@
 from .counter import CounterMachine
+from .jit_fifo import JitFifoMachine
+from .jit_kv import JitKvMachine
+from .registers import RegisterMachine
+from .ttl_kv import TtlKvMachine
 
-__all__ = ["CounterMachine"]
+__all__ = ["CounterMachine", "JitFifoMachine", "JitKvMachine",
+           "RegisterMachine", "TtlKvMachine"]

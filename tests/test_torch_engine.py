@@ -321,13 +321,6 @@ def test_engine_refuses_what_it_does_not_run():
     with pytest.raises(ValueError, match="ring_capacity"):
         port_lockstep.LockstepEngine(CounterMachine(), 8, 3, device="cpu",
                                      ring_capacity=10, max_step_cmds=8)
-
-    class Sequential(CounterMachine):
-        supports_batch_apply = False
-
-    e = port_lockstep.LockstepEngine(Sequential(), 8, 3, device="cpu")
-    with pytest.raises(NotImplementedError, match="sequential"):
-        e.uniform_step(1)
     e = port_lockstep.LockstepEngine(CounterMachine(), 8, 3, device="cpu")
     with pytest.raises(ValueError, match="leader"):
         e.recover_member(0, 0)
