@@ -22,12 +22,19 @@ non-zero (there is no CPU path and no fallback to a plain version):
              the card, over three chained windows of every op,
              out-of-range keys, negative values and int32 overflow: at
              the paths' full widths and at ragged shapes (N not a
-             multiple of the block, P = 1, 3, 7, 16, A = 1, A > Q);
-             each timed a call
-             and back to back beside its bytes bound and the plain
-             version; and on the paths' bench windows the vectorised fast
-             fold (the reference's branch there, which the card does not
-             run) timed against the kernel, and equal to it
+             multiple of the block, P = 1, 3, 7, 16, A = 1, A > Q); for
+             the FIFO also the hard windows (fifo_hard_state: full ready
+             windows, several rows requeued at once, heads and tickets
+             at the int32 edges, equal ranks) with Q = 12, group widths
+             8, 16 and 32 and a ring of 5,000 (past 48 KB a block), and
+             the consumer mix's window at full ready depth; a strided
+             mask; each decoder timed at its
+             path's width, a call and back to back, beside its bytes
+             bound and the plain version, with the same launch's state
+             load and store alone and its command stream alone (what
+             holds it); and on the paths' bench windows the vectorised
+             fast fold (the reference's branch there, which the card
+             does not run) timed against the kernel, and equal to it
   parity     a seeded 64-step schedule (failures, elections with ties,
              recovery, membership, read batches) on a 1,024 x 5 engine,
              once on cuda and once on cpu: every LaneState leaf and aux
@@ -1272,11 +1279,114 @@ def fold_commands(kind: str, rng, n: int, a: int, S: int) -> np.ndarray:
                      value, last], -1).astype(np.int32)
 
 
-def fold_operands(machine, kind, n, p, a, rng, dev, state=None):
+def wrap32(x) -> np.ndarray:
+    """Integers cut to int32 as two's complement, as XLA's int32 wraps."""
+    return ((np.asarray(x, np.int64) + 2 ** 31) % 2 ** 32 -
+            2 ** 31).astype(np.int32)
+
+
+def fifo_hard_state(rng, n: int, Q: int, K: int, C: int) -> dict:
+    """[n, ...] FIFO lane states (numpy int32) at the requeue merge's
+    corners: most ready windows full to the capacity beside several
+    checked-out rows a consumer, so a return or a cancel merges into a
+    full window; a sixth holding the whole capacity ready beside the
+    checked-out rows (more than the engine's own commands ever hold, which
+    the fold takes all the same: a merge's sources then pass the ring's
+    end); a quarter of the heads just below 2^31 and a quarter at
+    -2^31, and a quarter of the ticket runs just below 2^31 (the window
+    wraps the ring and int32); checked-out tickets between, below and
+    above the ready ones, duplicated in a third of the lanes (equal
+    ranks); a third of the next ids at 2^31 - 1 (a checkout's id wraps
+    negative, and its row reads free)."""
+    edge = rng.integers(0, 4, n)
+    near = rng.integers(0, 2 * Q + 8, n)
+    head = wrap32(np.where(edge == 1, 2 ** 31 - 1 - near,
+                           np.where(edge == 2, -2 ** 31 + near,
+                                    rng.integers(0, 999, n))))
+    n_co = rng.integers(0, min(K, Q) + 1, n)
+    roll = rng.random(n)
+    size = np.where(roll < 0.6, Q - n_co,
+                    np.where(roll < 0.75, Q, rng.integers(0, Q - n_co + 1)))
+    mid0 = np.where(rng.random(n) < 0.25, 2 ** 31 - 1 - near,
+                    rng.integers(-999, 999, n))
+    buf = rng.integers(0, 1000, (n, Q))
+    dc = rng.integers(0, 3, (n, Q))
+    mid = rng.integers(-50, 50, (n, Q))          # stale slots
+    for j in range(Q):                           # ticket order from head
+        at = np.flatnonzero(j < size)
+        mid[at, wrap32(head[at].astype(np.int64) + j) % Q] = \
+            wrap32(mid0[at] + 2 * j + 1)
+    k = np.arange(K)[None]
+    id0 = np.where(rng.random(n) < 0.3, 2 ** 31 - 1 - 3 * K,
+                   rng.integers(0, 999, n))
+    co_mid = wrap32(mid0[:, None] + 2 * rng.integers(
+        -3, size[:, None] + 4, (n, K)))          # even: between tickets
+    owner = rng.integers(0, C + 1, (n, K))       # C: anonymous
+    con_pid = np.where(rng.random((n, C)) < 0.8, 2 * np.arange(C)[None], -1)
+    for dup, col in ((rng.random(n) < 0.35, 1), (rng.random(n) < 0.15, 2)):
+        if col < K:     # a registered consumer owns the equal tickets
+            co_mid[dup, col] = co_mid[dup, 0]
+            owner[dup, 0] %= C
+            owner[dup, col] = owner[dup, 0]
+            con_pid[dup, owner[dup, 0]] = 2 * owner[dup, 0]
+    state = {
+        "buf": buf, "dc": dc, "mid": mid, "head": head,
+        "tail": wrap32(head.astype(np.int64) + size),
+        "co_id": np.where(k < n_co[:, None], id0[:, None] + 3 * k, -1),
+        "co_val": rng.integers(0, 1000, (n, K)),
+        "co_dc": rng.integers(0, 3, (n, K)), "co_mid": co_mid,
+        "co_owner": owner, "con_pid": con_pid,
+        "con_credit": rng.integers(0, K + 2, (n, C)),
+        "next_id": np.where(rng.random(n) < 0.3,
+                            2 ** 31 - 1 - rng.integers(0, 3, n),
+                            id0 + 3 * K),
+        "next_mid": wrap32(mid0 + 2 * size + 1),
+        "n_dropped": rng.integers(0, 9, n)}
+    return {key: wrap32(v) for key, v in state.items()}
+
+
+def fifo_hard_commands(rng, co_id, next_id, C: int, a: int) -> np.ndarray:
+    """An [n, a, 3] FIFO window for ``fifo_hard_state``'s lanes: returns
+    and settles of the lane's checked-out ids (``co_id`` [n, K]) and of
+    ids its checkouts in the window get (from ``next_id`` [n]), cancels
+    and downs of consumers that own several rows, checkouts, enqueues
+    that keep the window full, a rare purge, and unknown ids and pids."""
+    n, K = co_id.shape
+    ops = np.array([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12])
+    weight = np.array([1, 6, 2, 3, 2, 6, .2, 1, 2, 2, 4, 1, .3])
+    op = rng.choice(ops, (n, a), p=weight / weight.sum())
+    pick = co_id[np.arange(n)[:, None], rng.integers(0, K, (n, a))]
+    fresh = next_id[:, None].astype(np.int64) + rng.integers(0, 4, (n, a))
+    ids = np.where((pick >= 0) & (rng.random((n, a)) < 0.7), pick, fresh)
+    pids = np.where(rng.random((n, a)) < 0.1, -1,
+                    2 * rng.integers(0, C + 1, (n, a)))
+    x = np.where((op == 4) | (op == 5), ids,
+                 np.where((op >= 7) & (op <= 11), pids,
+                          rng.integers(0, 1000, (n, a))))
+    return wrap32(np.stack([op, x, rng.integers(0, K + 2, (n, a))], -1))
+
+
+def fold_operands(machine, kind, n, p, a, rng, dev, state=None,
+                  hard=False):
     """(meta, commands, mask, state) of one window on ``dev``: the lane's
-    commands through a stride-0 member axis, as the engine passes them."""
+    commands through a stride-0 member axis, as the engine passes them.
+    ``hard`` (FIFO): a ``fifo_hard_state`` start and ``fifo_hard_commands``
+    windows instead of random ones."""
+    from ra_tpu_torch.core.tree import tree_map
     S = getattr(machine, "n_keys", getattr(machine, "n_slots", 0))
-    cmd = torch.from_numpy(fold_commands(kind, rng, n, a, S)).to(dev)
+    if hard:
+        if state is None:
+            lanes = fifo_hard_state(rng, n, machine.capacity,
+                                    machine.checkout_slots,
+                                    machine.consumer_slots)
+            state = {k: torch.from_numpy(v).to(dev)[:, None].expand(
+                (n, p) + v.shape[1:]).contiguous() for k, v in lanes.items()}
+        cmd = torch.from_numpy(fifo_hard_commands(
+            rng, state["co_id"][:, 0].cpu().numpy(),
+            state["next_id"][:, 0].cpu().numpy(), machine.consumer_slots,
+            a)).to(dev)
+    else:
+        cmd = torch.from_numpy(fold_commands(kind, rng, n, a, S)).to(dev)
     cmds = cmd[:, None].expand((n, p) + cmd.shape[1:])
     mask = torch.from_numpy(rng.random((n, p, a)) < 0.9).to(dev)
     index = torch.from_numpy((rng.integers(0, 4, (n, 1, a)) +
@@ -1284,7 +1394,6 @@ def fold_operands(machine, kind, n, p, a, rng, dev, state=None):
     meta = {"index": index.to(dev).expand(n, p, a),
             "term": torch.ones((n, 1, 1), dtype=torch.int32, device=dev)}
     if state is None:
-        from ra_tpu_torch.core.tree import tree_map
         state = tree_map(lambda x: x[:, None].expand(
             (n, p) + x.shape[1:]).contiguous(), machine.jit_init(n, dev))
     return meta, cmds, mask, state
@@ -1301,82 +1410,198 @@ def fold_bytes(meta, cmds, mask, state, kind) -> int:
     return 2 * state_b + n * a * c * 4 + n * p * a + idx_b
 
 
+def fifo_consumer_full(n: int, p: int, dev):
+    """(meta, commands, mask, state) of the FIFO consumer mix's window
+    (``fifo_mixes`` (b)) on a lane whose ready window is full: the plain
+    model of the queue run for 9 steps of the mix, every lane and member
+    alike, and step 9's 128 commands plus the apply window's 2 noops."""
+    rows = dict((mix, blocks) for mix, _m, blocks, _c in fifo_mixes(1))
+    blk = rows["b_consumer"](1)[1][1, 0]          # step 9 = dispatch 1, 1
+    oracle = FifoOracle(256, 8, 4)
+    for d in range(2):
+        for k in range(8 if d == 0 else 1):
+            for op, a, _b in rows["b_consumer"](d)[1][k, 0]:
+                oracle.apply(int(op), int(a))
+    if oracle.tail - oracle.head + sum(i >= 0 for i in oracle.co_id) != 256:
+        raise AssertionError("fifo consumer window: the queue is not full")
+    cmd = np.zeros((130, 3), np.int32)
+    cmd[:128] = blk
+    cmds = torch.from_numpy(cmd).to(dev).expand(n, 130, 3).contiguous()
+    cmds = cmds[:, None].expand(n, p, 130, 3)     # a copy a lane, as paths
+    state = {k: torch.from_numpy(v).to(dev).expand((n, p) + v.shape)
+             .contiguous() for k, v in oracle.state().items()}
+    meta = {"index": torch.arange(1, 131, dtype=torch.int32, device=dev)
+            .expand(n, p, 130),
+            "term": torch.ones((n, 1, 1), dtype=torch.int32, device=dev)}
+    mask = torch.ones((n, p, 130), dtype=torch.bool, device=dev)
+    mask[..., 128:] = False
+    return meta, cmds, mask, state
+
+
 def phase_fold_kernels(dev) -> list:
     """Each fold kernel against its plain version (the machine's
     sequential_window_fold, on the card): at the full widths of the fifo
-    and kv paths and at ragged shapes (N not a multiple of the 128-row
-    block, P = 1, 3, 7, 16, A = 1, A > Q), every op, both FIFO overflow
-    policies.  Then each timed at its path's width."""
+    and kv paths and at ragged shapes (N not a multiple of a block, P = 1,
+    3, 7, 16, A = 1, A > Q), every op, both FIFO overflow policies; for the
+    FIFO also the hard windows (``fifo_hard_state``: full ready windows,
+    several rows requeued at once, heads and tickets at the int32 edges,
+    equal ranks), with Q not a power of two, group widths 8, 16 and 32
+    (K, C = 5, 3; 13, 9; 32, 17) and a ring of 5,000 (blocks past 48 KB of
+    shared memory); and the tables the kernels fold in device memory: a
+    ring of 32,768, 40 consumers, cell files of 9,000-70,000.  Then each
+    timed at its path's width,
+    the FIFO also on the consumer mix's window at full ready depth."""
     from ra_tpu_torch.core.tree import tree_leaves, tree_map
     from ra_tpu_torch.models import JitFifoMachine, JitKvMachine, \
         RegisterMachine, TtlKvMachine
     from ra_tpu_torch.ops import _fold, fifo_fold, slot_fold
+    # case: (machine, kind, module, shapes, hard windows)
     cases = {
         "registers": (lambda: RegisterMachine(8), "registers", slot_fold,
-                      [(10_000, 5, 130), (1_001, 1, 1), (300, 7, 20)]),
+                      [(10_000, 5, 130), (1_001, 1, 1), (300, 7, 20)],
+                      False),
         "kv": (lambda: JitKvMachine(64), "kv", slot_fold,
-               [(10_000, 5, 130), (1_001, 3, 40), (129, 16, 33)]),
+               [(10_000, 5, 130), (1_001, 3, 40), (129, 16, 33)], False),
         "ttl_kv": (lambda: TtlKvMachine(64), "ttl_kv", slot_fold,
-                   [(10_000, 5, 130), (1_001, 1, 1), (300, 7, 20)]),
+                   [(10_000, 5, 130), (1_001, 1, 1), (300, 7, 20)], False),
         "fifo_reject": (lambda: JitFifoMachine(256, 8, 4), "fifo",
-                        fifo_fold, [(5_000, 5, 130)]),
+                        fifo_fold, [(5_000, 5, 130)], False),
         "fifo_drop_head": (lambda: JitFifoMachine(256, 8, 4, "drop_head"),
-                           "fifo", fifo_fold, [(5_000, 5, 130)]),
+                           "fifo", fifo_fold, [(5_000, 5, 130)], False),
         "fifo_small": (lambda: JitFifoMachine(16, 4, 2), "fifo", fifo_fold,
-                       [(1_001, 3, 40), (129, 16, 1), (300, 1, 64)]),
+                       [(1_001, 3, 40), (129, 16, 1), (300, 1, 64)], False),
         "fifo_small_drop_head": (
             lambda: JitFifoMachine(16, 4, 2, "drop_head"), "fifo",
-            fifo_fold, [(1_001, 7, 40), (33, 16, 20)]),
+            fifo_fold, [(1_001, 7, 40), (33, 16, 20)], False),
+        "fifo_hard": (lambda: JitFifoMachine(256, 8, 4), "fifo", fifo_fold,
+                      [(5_000, 5, 130), (1_001, 3, 300)], True),
+        "fifo_hard_drop_head": (
+            lambda: JitFifoMachine(256, 8, 4, "drop_head"), "fifo",
+            fifo_fold, [(5_000, 5, 130), (129, 1, 1)], True),
+        "fifo_odd_hard": (lambda: JitFifoMachine(12, 5, 3, "drop_head"),
+                          "fifo", fifo_fold,
+                          [(1_001, 7, 40), (129, 1, 1), (33, 16, 20)], True),
+        "fifo_g16_hard": (lambda: JitFifoMachine(40, 13, 9), "fifo",
+                          fifo_fold, [(300, 3, 50), (7, 16, 41)], True),
+        "fifo_g32_hard": (lambda: JitFifoMachine(64, 32, 17, "drop_head"),
+                          "fifo", fifo_fold, [(129, 3, 70)], True),
+        # a ring past 48 KB a block: opted-in shared memory, idle groups
+        "fifo_big_ring_hard": (lambda: JitFifoMachine(5_000, 4, 2), "fifo",
+                               fifo_fold, [(65, 3, 60)], True),
+        # the widest ring kept in shared memory (one row a block), and one
+        # past it, folded in device memory
+        "fifo_ring_19328_hard": (
+            lambda: JitFifoMachine(19_328, 8, 4, "drop_head"), "fifo",
+            fifo_fold, [(65, 3, 60)], True),
+        "fifo_ring_32768_hard": (lambda: JitFifoMachine(32_768, 8, 4),
+                                 "fifo", fifo_fold, [(65, 3, 60)], True),
+        # more consumers than a warp has lanes: the table in device memory
+        "fifo_consumers_40_hard": (
+            lambda: JitFifoMachine(64, 32, 40, "drop_head"), "fifo",
+            fifo_fold, [(129, 3, 70)], True),
+        "fifo_consumers_40": (lambda: JitFifoMachine(16, 4, 40), "fifo",
+                              fifo_fold, [(1_001, 3, 40)], False),
+        # cell files too wide for one row in shared memory
+        "kv_wide": (lambda: JitKvMachine(20_000), "kv", slot_fold,
+                    [(129, 3, 40)], False),
+        "ttl_kv_wide": (lambda: TtlKvMachine(9_000), "ttl_kv", slot_fold,
+                        [(129, 3, 40)], False),
+        "registers_wide": (lambda: RegisterMachine(70_000), "registers",
+                           slot_fold, [(33, 3, 30)], False),
     }
+
+    def check(case, m, mod, meta, cmds, mask, state):
+        """The kernel's fold against the plain version's, one launch;
+        returns (the plain fold, the largest difference: 0)."""
+        want = m.sequential_window_fold(meta, cmds, mask, state)
+        before = mod.LAUNCHES
+        got = m.in_order_fold(meta, cmds, mask, state)
+        torch.cuda.synchronize()
+        if mod.LAUNCHES != before + 1:
+            raise AssertionError(f"{case}: {mod.LAUNCHES - before} "
+                                 "launches for one call")
+        err = 0
+        for g, t in zip(tree_leaves(got), tree_leaves(want)):
+            err = max(err, int((g.long() - t.long()).abs().max()))
+            if g.dtype != t.dtype or not torch.equal(g, t):
+                raise AssertionError(f"{case} fold kernel != plain version "
+                                     f"at {tuple(cmds.shape[:3])}")
+        return want, err
+
+    def kernel_call(m, kind, meta, cmds, mask, state):
+        """One launch of ``m``'s fold kernel on operands prepared once."""
+        c, k_, i_, st, out_k, _out = _fold.kernel_operands(
+            meta, cmds, mask, state)
+        if kind == "fifo":
+            return lambda: fifo_fold.fifo_fold_cuda(
+                c, k_, st, out_k, drop_head=m.overflow == "drop_head")
+        return lambda: slot_fold.slot_fold_cuda(kind, c, k_, i_, st, out_k)
+
+    def timing(m, kind, meta, cmds, mask, state):
+        """The kernel timed a call and back to back beside its bound and
+        the plain version; and what holds it: the same launch with the
+        state's load and store alone (one command, masked off) and with
+        the command stream but no op (the whole window masked off)."""
+        call = kernel_call(m, kind, meta, cmds, mask, state)
+        n, p, a = mask.shape
+        n_bytes = fold_bytes(meta, cmds, mask, state, kind)
+        bound_ms, bound_by = bound(n_bytes, n * p * a * 16)
+        off = torch.zeros_like(mask)
+        one = {"index": meta["index"][..., :1], "term": meta["term"]}
+        return {"shape": [n, p, a], "kernel_ms": cuda_ms(call, reps=50),
+                "kernel_graph_ms": graph_ms(call, reps=50),
+                "plain_ms": cuda_ms(lambda: m.sequential_window_fold(
+                    meta, cmds, mask, state), reps=3, warmup=1),
+                "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": bound_by,
+                "state_only_graph_ms": graph_ms(kernel_call(
+                    m, kind, one, cmds[..., :1, :], off[..., :1], state),
+                    reps=50),
+                "no_ops_graph_ms": graph_ms(kernel_call(
+                    m, kind, meta, cmds, off, state), reps=50)}
+
     checks, timed = [], {}
-    for case, (make, kind, mod, shapes) in cases.items():
+    for case, (make, kind, mod, shapes, hard) in cases.items():
         m = make()
         for n, p, a in shapes:
             rng = np.random.default_rng(n + p + a)
             state, err, windows = None, 0, 3
             for w in range(windows):
-                meta, cmds, mask, state = fold_operands(m, kind, n, p, a,
-                                                        rng, dev, state)
-                want = m.sequential_window_fold(meta, cmds, mask, state)
-                before = mod.LAUNCHES
-                got = m.in_order_fold(meta, cmds, mask, state)
-                torch.cuda.synchronize()
-                if mod.LAUNCHES != before + 1:
-                    raise AssertionError(f"{case}: {mod.LAUNCHES - before} "
-                                         "launches for one call")
-                for g, t in zip(tree_leaves(got), tree_leaves(want)):
-                    err = max(err, int((g.long() - t.long()).abs().max()))
-                    if g.dtype != t.dtype or not torch.equal(g, t):
-                        raise AssertionError(
-                            f"{case} fold kernel != plain version at "
-                            f"{(n, p, a)} window {w}")
-                state = want
+                meta, cmds, mask, state = fold_operands(
+                    m, kind, n, p, a, rng, dev, state, hard=hard)
+                state, e = check(case, m, mod, meta, cmds, mask, state)
+                err = max(err, e)
             checks.append({"case": case, "shape": [n, p, a],
                            "windows": windows, "exact": True,
                            "max_abs_err": err})
         # time the kernel alone at the path's width, on operands prepared
         # once
-        n, p, a = shapes[0]
-        if case not in ("kv", "ttl_kv", "fifo_reject"):
-            continue
-        rng = np.random.default_rng(7)
-        meta, cmds, mask, state = fold_operands(m, kind, n, p, a, rng, dev)
-        c, k_, i_, st, out_k, _out = _fold.kernel_operands(
-            meta, cmds, mask, state)
-        if kind == "fifo":
-            def call():
-                fifo_fold.fifo_fold_cuda(c, k_, st, out_k, drop_head=False)
-        else:
-            def call():
-                slot_fold.slot_fold_cuda(kind, c, k_, i_, st, out_k)
-        n_bytes = fold_bytes(meta, cmds, mask, state, kind)
-        bound_ms, bound_by = bound(n_bytes, n * p * a * 16)
-        timed[case] = {
-            "shape": [n, p, a], "kernel_ms": cuda_ms(call, reps=50),
-            "kernel_graph_ms": graph_ms(call, reps=50),
-            "plain_ms": cuda_ms(lambda: m.sequential_window_fold(
-                meta, cmds, mask, state), reps=3, warmup=1),
-            "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": bound_by}
+        if case in ("registers", "kv", "ttl_kv", "fifo_reject", "fifo_hard"):
+            n, p, a = shapes[0]
+            rng = np.random.default_rng(7)
+            timed[case] = timing(m, kind, *fold_operands(
+                m, kind, n, p, a, rng, dev, hard=hard))
+    # a mask with other strides than the engine's (every second column of
+    # a wider one): the kernels' byte-by-byte staging
+    for case, m, kind, mod in (
+            ("kv_strided_mask", JitKvMachine(64), "kv", slot_fold),
+            ("ttl_kv_strided_mask", TtlKvMachine(64), "ttl_kv", slot_fold),
+            ("fifo_strided_mask", JitFifoMachine(16, 4, 2), "fifo",
+             fifo_fold)):
+        rng = np.random.default_rng(11)
+        meta, cmds, _mask, state = fold_operands(m, kind, 1_001, 3, 40, rng,
+                                                 dev)
+        mask = torch.from_numpy(rng.random((1_001, 3, 80)) < 0.9).to(dev)
+        _want, err = check(case, m, mod, meta, cmds, mask[..., ::2], state)
+        checks.append({"case": case, "shape": [1_001, 3, 40], "windows": 1,
+                       "exact": True, "max_abs_err": err})
+    # the FIFO's costliest window on its path: the consumer mix at full
+    # ready depth, where every settle or return meets 255 ready entries
+    m = JitFifoMachine(256, 8, 4)
+    ops = fifo_consumer_full(5_000, 5, dev)
+    _want, err = check("fifo_consumer_full", m, fifo_fold, *ops)
+    checks.append({"case": "fifo_consumer_full", "shape": [5_000, 5, 130],
+                   "windows": 1, "exact": True, "max_abs_err": err})
+    timed["fifo_consumer_full"] = timing(m, "fifo", *ops)
     # the vectorised fast fold (torch ops) against the kernel on the same
     # window, the paths' bench windows: clean windows, where the
     # reference takes the fast fold and the card runs the kernel
@@ -1409,14 +1634,7 @@ def phase_fold_kernels(dev) -> list:
                zip(tree_leaves(fast), tree_leaves(got))):
             raise AssertionError(f"{kind}: fast fold != fold kernel on the "
                                  "bench window")
-        c, k_, i_, st, out_k, _out = _fold.kernel_operands(
-            meta, cmds, mask, state)
-        if kind == "fifo":
-            def call():
-                fifo_fold.fifo_fold_cuda(c, k_, st, out_k, drop_head=False)
-        else:
-            def call():
-                slot_fold.slot_fold_cuda(kind, c, k_, i_, st, out_k)
+        call = kernel_call(m, kind, meta, cmds, mask, state)
         fast_vs_kernel[kind] = {
             "shape": [n, 5, 130], "equal": True,
             "fast_fold_ms": cuda_ms(lambda: m._batch_fast(cmds, mask, state),
@@ -1443,6 +1661,9 @@ def phase_fold_kernels(dev) -> list:
                     # no single PyTorch call computes a machine's fold
                     "library_ms": None})
     out[0]["ttl_kv"] = timed["ttl_kv"]
+    out[0]["registers"] = timed["registers"]
+    out[1]["consumer_full"] = timed["fifo_consumer_full"]
+    out[1]["hard"] = timed["fifo_hard"]
     return out
 
 

@@ -5,7 +5,9 @@ The key scheme is the reference engine's checkpoint archive
 per leaf, keyed ``<field>:<j>`` with leaves in ``jax.tree.flatten`` order
 (``telem:0..7``; ``mac:0`` for the counter).  So an archive written by
 either engine restores into the other, and tests compare the two
-engines' states leaf for leaf.
+engines' states leaf for leaf.  The older positional archive (``a<i>``
+keys over the whole state's leaves, with or without the telemetry
+leaves) restores through :func:`state_from_positional`.
 """
 from __future__ import annotations
 
@@ -74,3 +76,38 @@ def state_from_numpy(arrays: dict, like, device: torch.device,
                 new.append(got)
         fields.append(tree_unflatten(cur, new))
     return type(like)(*fields)
+
+
+def state_from_positional(arrays: dict, like, device: torch.device):
+    """Build a state of ``like``'s type from a positional archive: keys
+    ``a<i>`` over every leaf of the state in ``jax.tree.flatten`` order,
+    as the reference engine wrote checkpoints before the schema-named
+    keys (``ra_tpu/engine/lockstep.py::_restore_positional``).  An
+    archive short by exactly the telemetry leaves (``telem``) predates
+    the telemetry plane: those leaves are zero-filled.  Any other leaf
+    count, a shape that differs from ``like``'s, or a dtype that does,
+    raises."""
+    flat = tree_leaves(like)
+    n, n_arch = len(flat), len(arrays)
+    at = like._fields.index("telem")
+    tel_at = len(tree_leaves(tuple(like[:at])))
+    n_tel = len(tree_leaves(like[at]))
+    legacy = n_arch == n - n_tel
+    if not legacy and n_arch != n:
+        raise ValueError(f"checkpoint leaf count mismatch: archive has "
+                         f"{n_arch} arrays, engine state needs {n}")
+    loaded, j = [], 0
+    for i, x in enumerate(flat):
+        if legacy and tel_at <= i < tel_at + n_tel:
+            loaded.append(torch.zeros_like(x))
+            continue
+        got = torch.from_numpy(np.ascontiguousarray(arrays[f"a{j}"]))
+        j += 1
+        if tuple(got.shape) != tuple(x.shape):
+            raise ValueError(f"checkpoint geometry mismatch: "
+                             f"{tuple(got.shape)} != {tuple(x.shape)}")
+        if got.dtype != x.dtype:
+            raise ValueError(f"checkpoint dtype mismatch for a{j - 1}: "
+                             f"{got.dtype} != {x.dtype}")
+        loaded.append(got.to(device))
+    return tree_unflatten(like, loaded)

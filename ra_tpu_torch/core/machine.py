@@ -63,6 +63,10 @@ class JitMachine:
         """The initial state tree with a leading lane axis, on ``device``."""
         raise NotImplementedError
 
+    def check_device(self, device: torch.device) -> None:
+        """Raise if this machine cannot run on ``device``, where an engine
+        is built; every device is taken unless a machine says otherwise."""
+
     def jit_apply(self, meta, command, state):
         """(meta tensors, encoded command, state) -> (state, reply)."""
         raise NotImplementedError

@@ -50,7 +50,8 @@ import numpy as np
 import torch
 
 from .. import devicewatch, trace
-from ..convert import state_from_numpy, state_to_numpy
+from ..convert import state_from_numpy, state_from_positional, \
+    state_to_numpy
 from ..core.machine import JitMachine
 from ..core.tree import tree_leaves, tree_map, tree_unflatten
 from ..device import DeviceLike, resolve_device
@@ -666,6 +667,7 @@ class LockstepEngine:
                  lease_ttl: int = 8, read_timeout: int = 0,
                  device: DeviceLike = None) -> None:
         self.device = resolve_device(device)
+        machine.check_device(self.device)
         self.machine = machine
         self.n_lanes = n_lanes
         self.n_members = n_members
@@ -1169,14 +1171,18 @@ class LockstepEngine:
         os.replace(tmp, path)
 
     def restore(self, path: str) -> None:
-        """Load a schema-named .npz written by :meth:`save` (of either
-        engine).  Geometry must match construction; fields the archive
-        predates restore through ``CHECKPOINT_FIELD_DEFAULTS``."""
+        """Load a .npz written by :meth:`save` (of either engine).
+        Geometry must match construction; fields the archive predates
+        restore through ``CHECKPOINT_FIELD_DEFAULTS``.  Positional
+        archives (``a<i>`` keys, the reference's format before the
+        schema-named keys, with or without the telemetry leaves) restore
+        too, as in the reference."""
         with np.load(path) as z:
             arrays = {k: z[k] for k in z.files if k != "__meta__"}
         if not any(":" in k for k in arrays):
-            raise ValueError("positional (pre-schema) checkpoints are not "
-                             "supported by the torch engine")
+            self.state = state_from_positional(arrays, self.state,
+                                               self.device)
+            return
         self.state = state_from_numpy(arrays, self.state, self.device,
                                       defaults=CHECKPOINT_FIELD_DEFAULTS)
 

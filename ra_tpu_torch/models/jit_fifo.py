@@ -30,11 +30,14 @@ kernel.
 """
 from __future__ import annotations
 
+import warnings
+
 import torch
 
-from ..core.machine import JitMachine, cond_select, encode_i32
+from ..core.machine import JitMachine, encode_i32
 from ..ops.exact import add32, sum32
-from ..ops.fifo_fold import fifo_fold_dispatch
+from ..ops.fifo_fold import MAX_CHECKOUT, MAX_SHARED_RING, \
+    fifo_fold_dispatch, kernel_takes_capacity
 
 I32 = torch.int32
 #: the clamped-add scan's identity bounds (above any queue size)
@@ -87,6 +90,33 @@ class JitFifoMachine(JitMachine):
         self.checkout_slots = checkout_slots
         self.consumer_slots = consumer_slots
         self.overflow = overflow
+
+    def check_device(self, device: torch.device) -> None:
+        """On a CUDA device: refuse the tables the fold kernel cannot fold
+        (more than 32 checkout slots; a capacity longer than the ring
+        shared memory holds that is not a power of two), and warn that
+        with a capacity that is not a power of two a lane whose head comes
+        within about the capacity of the int32 edge can fold a clean
+        window otherwise than on the CPU: there the fast fold the CPU
+        takes and the in-order fold the kernel runs place entries
+        differently, as they do in the reference."""
+        if device.type != "cuda":
+            return
+        Q, K = self.capacity, self.checkout_slots
+        if K > MAX_CHECKOUT or not kernel_takes_capacity(Q):
+            raise ValueError(
+                f"JitFifoMachine(capacity={Q}, checkout_slots={K}) does not "
+                f"run on the card: its fold kernel takes up to "
+                f"{MAX_CHECKOUT} checkout slots and a capacity up to "
+                f"{MAX_SHARED_RING} or a power of two")
+        if Q & (Q - 1):
+            warnings.warn(
+                f"JitFifoMachine(capacity={Q}) on the card: with a capacity "
+                f"that is not a power of two, a lane whose head comes "
+                f"within about {Q} tickets of the int32 edge can fold a "
+                f"window of enqueues and settled dequeues otherwise than on "
+                f"the CPU",
+                RuntimeWarning, stacklevel=3)
 
     def jit_init(self, n_lanes: int, device: torch.device):
         N, Q, K, C = (n_lanes, self.capacity, self.checkout_slots,
@@ -179,7 +209,10 @@ class JitFifoMachine(JitMachine):
         new_tail = add32(tail, enq.to(I32))
 
         # -- enqueue ring write -------------------------------------------
-        qr = torch.arange(Q, device=dev)
+        # ring positions in int32 as the reference's: an offset from the
+        # head wraps like XLA's int32 subtraction (it matters where Q is
+        # not a power of two and the head sits at the int32 edge)
+        qr = torch.arange(Q, device=dev, dtype=I32)
         enq_hot = (qr == tail_slot[..., None]) & enq[..., None]
         buf = torch.where(enq_hot, a[..., None], buf)
         dc = torch.where(enq_hot, 0, dc)
@@ -189,8 +222,12 @@ class JitFifoMachine(JitMachine):
         # -- the requeue merge (op-5 return and cancel/down): each requeued
         # row lands at its ticket rank in the merged window, and the ready
         # entries shift back by the requeued tickets below them.  Computed
-        # always and selected where any row of the batch requeues (the
-        # reference's lax.cond)
+        # always and kept in the rows that requeue.  (The reference keeps
+        # it in every row of the batch once any row requeues, behind a
+        # lax.cond; that is the same wherever the merge of a row with
+        # nothing to requeue is the identity, which it is unless Q is not
+        # a power of two and the head sits at the int32 edge: there its
+        # wrapped offsets move a bystander's ready entries.)
         kr = torch.arange(self.checkout_slots, device=dev)
         req = (cancel[..., None] & owned) | \
             (ret[..., None] & (kr == match_slot[..., None]))
@@ -198,14 +235,15 @@ class JitFifoMachine(JitMachine):
         new_head = head - n_req
 
         size2 = new_tail - head
-        in_win = _mod(qr - head[..., None], Q) < size2[..., None]
+        in_win = _mod(add32(qr, -head[..., None].long()), Q) < \
+            size2[..., None]
         rank = sum32((in_win[..., None, :] &
                       (mid[..., None, :] < co_mid[..., :, None])).to(I32))
         rank = rank + sum32((req[..., None, :] &
                              (co_mid[..., None, :] < co_mid[..., :, None]))
                             .to(I32))
         rank = torch.where(req, rank, -1)     # inactive rows never land
-        jd = _mod(qr - new_head[..., None], Q)                 # [..., Q]
+        jd = _mod(add32(qr, -new_head[..., None].long()), Q)   # [..., Q]
         valid = jd < (size2 + n_req)[..., None]
         eq = rank[..., :, None] == jd[..., None, :]            # [..., K, Q]
         land = eq.any(dim=-2)
@@ -216,13 +254,16 @@ class JitFifoMachine(JitMachine):
         cnt_lt = sum32(((rank[..., :, None] >= 0) &
                         (rank[..., :, None] < jd[..., None, :])).to(I32),
                        dim=-2)
-        src_slot = _mod(head[..., None] + jd - cnt_lt, Q).long()
+        src_slot = _mod(add32(add32(head[..., None], jd), -cnt_lt.long()),
+                        Q).long()
         merged = tuple(
             torch.where(valid, torch.where(land, at_rank(r),
                                            torch.gather(x, -1, src_slot)), x)
             for x, r in ((buf, co_val), (dc, add32(co_dc, 1)),
                          (mid, co_mid)))
-        buf, dc, mid = cond_select((n_req > 0).any(), merged, (buf, dc, mid))
+        requeues = (n_req > 0)[..., None]
+        buf, dc, mid = (torch.where(requeues, m, x)
+                        for m, x in zip(merged, (buf, dc, mid)))
         head = new_head
 
         # -- checkout-table writes ----------------------------------------
@@ -343,8 +384,8 @@ class JitFifoMachine(JitMachine):
         # offset jd says everything positional.  Windows wider than the
         # queue alias slots mod Q; only the last aliasing enqueue survives,
         # rank_win = jd + Q * floor((n_enq - 1 - jd) / Q)
-        qr = torch.arange(Q, device=dev)
-        jd = _mod(qr - tail[..., None], Q)                     # [..., Q]
+        qr = torch.arange(Q, device=dev, dtype=I32)
+        jd = _mod(add32(qr, -tail[..., None].long()), Q)       # [..., Q]
         written = jd < n_enq[..., None]
         rank_win = jd + Q * torch.div(n_enq[..., None] - 1 - jd, Q,
                                       rounding_mode="floor")

@@ -11,32 +11,55 @@
 // on every state leaf.  Replies are not computed: the engine discards them
 // on this path, as the reference does.
 //
-// One thread a replica row (lane n, member p) walks its window in order:
-// for each masked command it decodes [op, key, value, x] and applies it to
-// the row's cells in device memory.  The commands are the lane's [N,A,4]
-// window read through the strides of the engine's expanded [N,P,A,4] view
-// (member stride 0), so the P replicas of a lane share one copy in L1/L2;
-// the mask and index likewise come with their strides.
-//
-// It folds every window, the ones the reference's vectorised fast fold
-// would take included (the two folds agree there).  The output rows are
-// first copied from the input rows by the whole block (coalesced: a
-// block's rows are one contiguous run of each leaf), then each thread
-// folds its own row.
-//
 // Bound: memory.  Each state leaf is read once and written once, plus the
 // commands, mask and index once: at 10,000 x 5 replicas of 64 cells that is
-// 2 x 12.8 MB + 20.8 MB of commands (shared by the 5 members) + 6.5 MB of
-// mask + 5.2 MB of index.  The decoders are a few integer ops a command.
+// 2 x 12.8 MB of KV cells + 20.8 MB of commands (shared by the 5 members)
+// + 6.5 MB of mask, 52.9 MB in all, 0.016 ms at 3.35 TB/s; TTL-KV's three
+// files, clock and index make it 109.7 MB, 0.033 ms.
+//
+// Design: one thread a replica row (lane n, member p) walks its window in
+// order; a command is a few integer ops on one cell, so lanes of a warp
+// sharing a row would mostly idle.
+//  * The row's cell files live in shared memory while it folds, read from
+//    device memory once (cp.async, every copy in flight at once) and
+//    written once, with no copy pass from input to output.  They are
+//    cell-major, cell k of the block's row t at k * (R + 1) + t for R rows
+//    a block: a warp loads and stores 32 consecutive cells of one row
+//    (coalesced, 128 bytes) into 32 banks, and in the fold the members of
+//    a lane, which touch the same key, hit neighbouring banks.  TTL-KV's
+//    clock stays in a register.
+//  * The block's rows of the mask are staged in shared memory too (one
+//    contiguous run of bytes, copied 16 bytes at a time): read by each
+//    thread from device memory, a warp's mask bytes would touch 32 lines
+//    a load.
+//  * The commands are the lane's [N,A,4] window read through the strides
+//    of the engine's expanded [N,P,A,4] view (member stride 0), so the P
+//    members of a lane share one copy in L1; a row loads the next 8
+//    commands (one 16-byte load each where the layout allows, and TTL-KV's
+//    index) while it folds the 8 before.
+//  * Waves: R is the one of 128, 96, 64, 32 that keeps the most rows on an
+//    SM, cells and mask counted.  KV at 64 cells and A = 130 takes R = 96
+//    (37 KB a block, 6 blocks, 576 rows an SM): 10,000 x 5 rows fit in one
+//    wave.  TTL-KV's three files take R = 32 (30 KB, 7 blocks, 224 rows an
+//    SM): two waves, the second 0.7 of the first.
+//  * Files or windows too wide for even one row in shared memory take a
+//    slower route with the same results: the block copies its rows to
+//    their output rows, and each thread folds its row there in device
+//    memory, reading its mask bytes through their strides.
 // Integer adds wrap modulo 2^32, as XLA's int32 arithmetic.  The kernel
-// allocates nothing, never synchronises, and runs on the caller's stream,
-// so a CUDA graph can capture it.
+// allocates nothing, never synchronises the device, and runs on the
+// caller's stream, so a CUDA graph can capture it.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRowsPerBlock = 128;
+constexpr int kMaxRows = 128;        // rows a block, at most
+constexpr int kBatch = 8;            // commands loaded a batch ahead
+constexpr int kSmemPerSm = 233472;   // sm_90: 228 KB of shared memory an SM
+constexpr int kSmemPerBlock = 232448;  // 227 KB a block, by opt-in
+constexpr int kSmemReserved = 1024;    // the runtime's share of a block
 enum Kind { kRegisters = 0, kKv = 1, kTtlKv = 2 };
 
 __device__ __forceinline__ int wrap_add(int a, int b) {
@@ -67,87 +90,260 @@ struct RaSlotFoldArgs {
   int n, p, a, s;
 };
 
-// copy rows [row0, row0 + nrows) of a [rows, width] leaf, all threads
-__device__ __forceinline__ void copy_rows(const int* src, int* dst,
-                                          long long row0, int nrows,
-                                          int width) {
-  const long long base = row0 * width;
-  const long long count = (long long)nrows * width;
-  for (long long i = threadIdx.x; i < count; i += blockDim.x)
-    dst[base + i] = src[base + i];
+namespace {
+
+__host__ __device__ constexpr int files(int kind) {
+  return kind == kTtlKv ? 3 : 1;
 }
 
-template <int KIND>
-__global__ void __launch_bounds__(kRowsPerBlock)
-slot_fold_kernel(const RaSlotFoldArgs a) {
-  const long long rows = (long long)a.n * a.p;
-  const long long row0 = (long long)blockIdx.x * kRowsPerBlock;
-  const int nrows = (int)min((long long)kRowsPerBlock, rows - row0);
-  const int S = a.s;
-  copy_rows(a.cells, a.out_cells, row0, nrows, S);
-  if (KIND == kTtlKv) {
-    copy_rows(a.exp, a.out_exp, row0, nrows, S);
-    copy_rows(a.watch, a.out_watch, row0, nrows, S);
+// rows [row0, row0 + nrows) of a [rows, S] file into the block's
+// cell-major copy (stride R + 1): warp w takes rows w, w + warps, ...,
+// lane l cells l, l + 32, ...; every copy is in flight at once (cp.async)
+__device__ __forceinline__ void load_rows(int* smem, const int* src,
+                                          long long row0, int nrows, int S,
+                                          int stride) {
+  const int warps = blockDim.x / 32, lane = threadIdx.x % 32;
+  for (int r = threadIdx.x / 32; r < nrows; r += warps) {
+    const int* g = src + (row0 + r) * S;
+    for (int k = lane; k < S; k += 32)
+      __pipeline_memcpy_async(smem + k * stride + r, g + k, sizeof(int));
   }
-  __syncthreads();
-  if ((int)threadIdx.x >= nrows) return;
+}
 
-  const long long row = row0 + threadIdx.x;
-  const int n = (int)(row / a.p), p = (int)(row % a.p);
-  int* cells = a.out_cells + row * S;
-  int* exp = KIND == kTtlKv ? a.out_exp + row * S : nullptr;
-  int* watch = KIND == kTtlKv ? a.out_watch + row * S : nullptr;
-  int clock = KIND == kTtlKv ? a.clock[row] : 0;
-  const int* cmd0 = a.cmds + n * a.cmd_stride[0] + p * a.cmd_stride[1];
-  const bool* mask0 = a.mask + n * a.mask_stride[0] + p * a.mask_stride[1];
-  const int* index0 =
-      a.index + n * a.index_stride[0] + p * a.index_stride[1];
-  const long long cs = a.cmd_stride[3];
+// the same rows from device memory to device memory, [nrows, S] as one run
+__device__ __forceinline__ void copy_rows(int* dst, const int* src,
+                                          long long row0, int nrows, int S) {
+  const long long len = (long long)nrows * S;
+  for (long long e = threadIdx.x; e < len; e += blockDim.x)
+    dst[row0 * S + e] = src[row0 * S + e];
+}
 
-  for (int i = 0; i < a.a; ++i) {
-    if (!mask0[i * a.mask_stride[2]]) continue;
-    const int* c = cmd0 + i * a.cmd_stride[2];
-    const int op = c[0], key = c[cs], value = c[2 * cs], x = c[3 * cs];
-    const bool key_ok = key >= 0 && key < S;
-    const int k = clip(key, 0, S - 1);
-    if (KIND == kRegisters) {
-      // x = expected; a slot outside the file is clipped into it
-      const int cur = cells[k];
-      if (op == 1) cells[k] = value;
-      else if (op == 2) cells[k] = wrap_add(cur, value);
-      else if (op == 3 && cur == x) cells[k] = value;
-    } else if (KIND == kKv) {
-      // x = expected; bad keys and values leave the cells alone
-      if (!key_ok) continue;
-      if (op == 1 && value >= 0) cells[k] = value;
-      else if (op == 3) cells[k] = -1;
-      else if (op == 4 && value >= -1 && cells[k] == x) cells[k] = value;
-    } else {
-      // x = ttl; every applied command advances the clock to its index
-      const int idx = index0[i * a.index_stride[2]];
-      clock = idx > clock ? idx : clock;
-      if (!key_ok) continue;
-      if (op == 1 && value >= 0) {
-        cells[k] = value;
-        exp[k] = x > 0 ? wrap_add(clock, x) : 0;
-      } else if (op == 3) {
-        cells[k] = -1;
-      } else if (op == 4) {
-        watch[k] = wrap_add(watch[k], 1);
-      }
+__device__ __forceinline__ void store_rows(const int* smem, int* dst,
+                                           long long row0, int nrows, int S,
+                                           int stride) {
+  const int warps = blockDim.x / 32, lane = threadIdx.x % 32;
+  for (int r = threadIdx.x / 32; r < nrows; r += warps) {
+    int* g = dst + (row0 + r) * S;
+#pragma unroll 4
+    for (int k = lane; k < S; k += 32) g[k] = smem[k * stride + r];
+  }
+}
+
+// the block's rows of the mask, row-major [nrows, A] bytes, into shared
+// memory at ``base`` (16-byte aligned, 16 bytes of slack after); returns where
+// row 0 starts.  The engine's mask is contiguous: one run of bytes, copied
+// 16 bytes at a time with its alignment kept.  Other strides go byte by
+// byte.
+__device__ __forceinline__ const unsigned char* load_mask(
+    unsigned char* base, const RaSlotFoldArgs& a, long long row0,
+    int nrows) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const long long len = (long long)nrows * a.a;
+  const unsigned char* gm = reinterpret_cast<const unsigned char*>(a.mask);
+  if (a.mask_stride[2] == 1 && a.mask_stride[1] == a.a &&
+      a.mask_stride[0] == (long long)a.p * a.a) {
+    const unsigned char* g0 = gm + row0 * a.a;
+    unsigned char* s0 = base + ((uintptr_t)g0 & 15);
+    const long long head = min((long long)((16 - ((uintptr_t)g0 & 15)) & 15),
+                               len);
+    const long long chunks = (len - head) / 16;
+    for (long long e = tid; e < head; e += nt) s0[e] = g0[e];
+    for (long long j = tid; j < chunks; j += nt)
+      __pipeline_memcpy_async(s0 + head + 16 * j, g0 + head + 16 * j, 16);
+    for (long long e = head + 16 * chunks + tid; e < len; e += nt)
+      s0[e] = g0[e];
+    return s0;
+  }
+  for (long long e = tid; e < len; e += nt) {
+    const long long r = e / a.a, i = e - r * a.a, row = row0 + r;
+    base[e] = gm[row / a.p * a.mask_stride[0] + row % a.p * a.mask_stride[1] +
+                 i * a.mask_stride[2]];
+  }
+  return base;
+}
+
+// shared bytes a block of ``rows`` takes: the cell files, then the mask
+// (with room to align it and to keep its run's alignment)
+size_t smem_bytes(int kind, int S, int A, int rows) {
+  return sizeof(int) * (size_t)files(kind) * S * (rows + 1) +
+         (size_t)rows * A + 32;
+}
+
+// SMEM: the block's rows of the files and the mask in shared memory;
+// else the rows fold in their output rows in device memory
+template <int KIND, bool SMEM>
+__global__ void __launch_bounds__(kMaxRows)
+slot_fold_kernel(const RaSlotFoldArgs a, const int rows_per_block,
+                 const int vec_cmds) {
+  extern __shared__ int4 smem4[];
+  int* const smem = reinterpret_cast<int*>(smem4);
+  const int R = rows_per_block, S = a.s;
+  const long long rows = (long long)a.n * a.p;
+  const long long row0 = (long long)blockIdx.x * R;
+  const int nrows = (int)min((long long)R, rows - row0);
+  // cell k of the block's row t at k * kst + t * tst
+  const int kst = SMEM ? R + 1 : 1, tst = SMEM ? 1 : S;
+  int* const cells = SMEM ? smem : a.out_cells + row0 * S;
+  int* const exp = KIND != kTtlKv ? nullptr
+                  : SMEM ? smem + S * kst : a.out_exp + row0 * S;
+  int* const watch = KIND != kTtlKv ? nullptr
+                    : SMEM ? smem + 2 * S * kst : a.out_watch + row0 * S;
+  const unsigned char* smask = nullptr;
+  if (SMEM) {
+    load_rows(cells, a.cells, row0, nrows, S, kst);
+    if (KIND == kTtlKv) {
+      load_rows(exp, a.exp, row0, nrows, S, kst);
+      load_rows(watch, a.watch, row0, nrows, S, kst);
+    }
+    const uintptr_t after = (uintptr_t)(smem + files(KIND) * S * kst);
+    smask = load_mask(
+        reinterpret_cast<unsigned char*>((after + 15) & ~(uintptr_t)15), a,
+        row0, nrows);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+  } else {
+    copy_rows(a.out_cells, a.cells, row0, nrows, S);
+    if (KIND == kTtlKv) {
+      copy_rows(a.out_exp, a.exp, row0, nrows, S);
+      copy_rows(a.out_watch, a.watch, row0, nrows, S);
     }
   }
-  if (KIND == kTtlKv) a.out_clock[row] = clock;
+  __syncthreads();
+
+  const int t = threadIdx.x;
+  if (t < nrows) {
+    const long long row = row0 + t;
+    const long long n = row / a.p, p = row % a.p;
+    int clock = KIND == kTtlKv ? a.clock[row] : 0;
+    const int* cmd0 = a.cmds + n * a.cmd_stride[0] + p * a.cmd_stride[1];
+    const int* index0 =
+        a.index + n * a.index_stride[0] + p * a.index_stride[1];
+    const unsigned char* m = SMEM ? smask + (long long)t * a.a : nullptr;
+    const bool* gmask =
+        a.mask + n * a.mask_stride[0] + p * a.mask_stride[1];
+    const long long cs = a.cmd_stride[3];
+    // the next batch's commands (and indexes) load while this one folds
+    int4 next[kBatch];
+    int next_idx[kBatch];
+    auto fetch = [&](int i0) {
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = i0 + b < a.a ? i0 + b : a.a - 1;
+        const int* ci = cmd0 + i * a.cmd_stride[2];
+        if (vec_cmds) next[b] = __ldg(reinterpret_cast<const int4*>(ci));
+        else next[b] = make_int4(ci[0], ci[cs], ci[2 * cs], ci[3 * cs]);
+        if (KIND == kTtlKv) next_idx[b] = index0[i * a.index_stride[2]];
+      }
+    };
+    if (a.a > 0) fetch(0);
+    for (int i0 = 0; i0 < a.a; i0 += kBatch) {
+      int4 c[kBatch];
+      int idx[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        c[b] = next[b];
+        idx[b] = next_idx[b];
+      }
+      if (i0 + kBatch < a.a) fetch(i0 + kBatch);
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (i0 + b >= a.a) continue;
+        if (SMEM ? !m[i0 + b] : !gmask[(i0 + b) * a.mask_stride[2]])
+          continue;
+        const int op = c[b].x, key = c[b].y, value = c[b].z, x = c[b].w;
+        const bool key_ok = key >= 0 && key < S;
+        const int k = clip(key, 0, S - 1);
+        const long long off =
+            SMEM ? (long long)(k * kst + t) : (long long)t * tst + k;
+        int* const cell = cells + off;
+        if (KIND == kRegisters) {
+          // x = expected; a slot outside the file is clipped into it
+          const int cur = *cell;
+          if (op == 1) *cell = value;
+          else if (op == 2) *cell = wrap_add(cur, value);
+          else if (op == 3 && cur == x) *cell = value;
+        } else if (KIND == kKv) {
+          // x = expected; bad keys and values leave the cells alone
+          if (!key_ok) continue;
+          if (op == 1 && value >= 0) *cell = value;
+          else if (op == 3) *cell = -1;
+          else if (op == 4 && value >= -1 && *cell == x) *cell = value;
+        } else {
+          // x = ttl; every applied command advances the clock to its index
+          clock = idx[b] > clock ? idx[b] : clock;
+          if (!key_ok) continue;
+          if (op == 1 && value >= 0) {
+            *cell = value;
+            exp[off] = x > 0 ? wrap_add(clock, x) : 0;
+          } else if (op == 3) {
+            *cell = -1;
+          } else if (op == 4) {
+            watch[off] = wrap_add(watch[off], 1);
+          }
+        }
+      }
+    }
+    if (KIND == kTtlKv) a.out_clock[row] = clock;
+  }
+  if (SMEM) {
+    __syncthreads();
+    store_rows(cells, a.out_cells, row0, nrows, S, kst);
+    if (KIND == kTtlKv) {
+      store_rows(exp, a.out_exp, row0, nrows, S, kst);
+      store_rows(watch, a.out_watch, row0, nrows, S, kst);
+    }
+  }
 }
 
 template <int KIND>
-static int launch(const RaSlotFoldArgs& a, cudaStream_t stream) {
+int launch(const RaSlotFoldArgs& a, cudaStream_t stream) {
+  // rows a block: of 128, 96, 64, 32 (then fewer, for wide files) the one
+  // that keeps the most rows on an SM, the larger on a tie; none fits:
+  // 128 rows folding in device memory
+  int best = 0, rows_per_block = 0;
+  for (int r = kMaxRows; r >= 1; r = r > 32 ? r - 32 : r / 2) {
+    const size_t bytes = smem_bytes(KIND, a.s, a.a, r);
+    if (bytes > (size_t)kSmemPerBlock) continue;
+    const int threads = (r + 31) / 32 * 32;
+    int blocks = (int)(kSmemPerSm / (bytes + kSmemReserved));
+    blocks = blocks < 2048 / threads ? blocks : 2048 / threads;
+    blocks = blocks < 32 ? blocks : 32;
+    if (blocks * r > best) {
+      best = blocks * r;
+      rows_per_block = r;
+    }
+    if (r <= 32 && best > 0) break;
+  }
+  const bool in_smem = rows_per_block > 0;
+  if (!in_smem) rows_per_block = kMaxRows;
+  const size_t smem =
+      in_smem ? smem_bytes(KIND, a.s, a.a, rows_per_block) : 0;
+  static size_t opted = 48 * 1024;
+  if (smem > opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        slot_fold_kernel<KIND, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    opted = smem;
+  }
+  const int vec_cmds =
+      a.cmd_stride[3] == 1 && a.cmd_stride[2] % 4 == 0 &&
+      a.cmd_stride[1] % 4 == 0 && a.cmd_stride[0] % 4 == 0 &&
+      ((uintptr_t)a.cmds & 15) == 0;
   const long long rows = (long long)a.n * a.p;
   const unsigned blocks =
-      (unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  slot_fold_kernel<KIND><<<blocks, kRowsPerBlock, 0, stream>>>(a);
+      (unsigned)((rows + rows_per_block - 1) / rows_per_block);
+  const int threads = (rows_per_block + 31) / 32 * 32;
+  if (in_smem)
+    slot_fold_kernel<KIND, true><<<blocks, threads, smem, stream>>>(
+        a, rows_per_block, vec_cmds);
+  else
+    slot_fold_kernel<KIND, false><<<blocks, threads, 0, stream>>>(
+        a, rows_per_block, vec_cmds);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
 
 extern "C" int ra_slot_fold_args_size() {
   return (int)sizeof(RaSlotFoldArgs);
@@ -156,6 +352,7 @@ extern "C" int ra_slot_fold_args_size() {
 extern "C" int ra_slot_fold(const RaSlotFoldArgs* a, int kind,
                             void* stream) {
   if ((long long)a->n * a->p <= 0) return (int)cudaSuccess;
+  if (a->s < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (kind) {
     case kRegisters: return launch<kRegisters>(*a, s);

@@ -34,6 +34,15 @@ LEAVES = ("buf", "co_dc", "co_id", "co_mid", "co_owner", "co_val",
 
 #: the largest checkout table the kernel takes (kMaxCheckout)
 MAX_CHECKOUT = 32
+#: the longest ring the kernel keeps in shared memory (kMaxSharedRing); a
+#: longer one folds in device memory, which the kernel does only for a
+#: capacity that is a power of two
+MAX_SHARED_RING = 19328
+
+
+def kernel_takes_capacity(q: int) -> bool:
+    """Whether the kernel folds a ring of ``q`` slots."""
+    return 1 <= q <= MAX_SHARED_RING or (q > 0 and q & (q - 1) == 0)
 
 
 class _Args(ctypes.Structure):
@@ -70,20 +79,26 @@ def _kernel_fn():
 
 
 def fifo_fold_cuda(commands, mask, state, out, *, drop_head: bool) -> None:
-    """Fold the window into ``out`` in one kernel launch.  ``commands`` int32 [N,P,A,3+] and
-    ``mask`` bool [N,P,A], any strides; ``state`` and ``out`` the FIFO's
-    15-leaf dicts with leading dims [N,P] (buf/dc/mid [Q], co_* [K],
-    con_* [C], five scalars), int32 and contiguous, ``out`` sharing no
-    memory with ``state``; 1 <= K <= 32.  Raises on anything else, and if
+    """Fold the window into ``out`` in one kernel launch.  ``commands``
+    int32 [N,P,A,3+] and ``mask`` bool [N,P,A], any strides; ``state`` and
+    ``out`` the FIFO's 15-leaf dicts with leading dims [N,P] (buf/dc/mid
+    [Q], co_* [K], con_* [C], five scalars), int32 and contiguous, ``out``
+    sharing no memory with ``state``; 1 <= K <= 32, C >= 1, and
+    1 <= Q <= 19328 or Q a power of two.  Raises on anything else, and if
     the launch fails."""
     global LAUNCHES
     if sorted(state) != list(LEAVES) or sorted(out) != list(LEAVES):
         raise ValueError(f"fifo state must have the keys {LEAVES}")
+    Q, K, C = (state["buf"].shape[-1], state["co_id"].shape[-1],
+               state["con_pid"].shape[-1])
+    if not (1 <= K <= MAX_CHECKOUT and C >= 1 and kernel_takes_capacity(Q)):
+        raise ValueError(f"the fifo-fold kernel takes 1 <= K <= "
+                         f"{MAX_CHECKOUT} checkout slots, C >= 1 consumer "
+                         f"slots and a capacity 1 <= Q <= {MAX_SHARED_RING} "
+                         f"or a power of two; got K={K}, C={C}, Q={Q}")
     ins, outs = [state[k] for k in LEAVES], [out[k] for k in LEAVES]
     dev = check_fold_operands(commands, mask, None, ins, outs, width=3)
     N, P, A = mask.shape
-    Q, K, C = (state["buf"].shape[-1], state["co_id"].shape[-1],
-               state["con_pid"].shape[-1])
     want = {"buf": Q, "dc": Q, "mid": Q, "co_dc": K, "co_id": K,
             "co_mid": K, "co_owner": K, "co_val": K, "con_credit": C,
             "con_pid": C}
@@ -92,10 +107,6 @@ def fifo_fold_cuda(commands, mask, state, out, *, drop_head: bool) -> None:
         if tuple(t.shape) != shape:
             raise ValueError(f"fifo state {k} must be {shape}, got "
                              f"{tuple(t.shape)}")
-    if not 1 <= K <= MAX_CHECKOUT or Q < 1 or C < 1:
-        raise ValueError(f"the fifo-fold kernel takes 1 <= K <= "
-                         f"{MAX_CHECKOUT} checkout slots, Q >= 1, C >= 1; "
-                         f"got K={K}, Q={Q}, C={C}")
     if N * P == 0:
         return
     args = _Args((ctypes.c_void_p * len(LEAVES))(*(t.data_ptr()

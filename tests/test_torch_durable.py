@@ -429,6 +429,55 @@ def test_cross_recovery(tmp_path, writer, shards):
     port.close()
 
 
+@pytest.mark.parametrize("kind", ["full", "pre_telemetry"])
+def test_positional_checkpoint_dir_reopens_in_both(tmp_path, kind):
+    """A durable directory whose ``ckpt.npz`` is a positional archive of
+    the reference's older engines (``a<i>`` keys, with or without the
+    telemetry leaves) reopens through ``open_engine`` in both packages
+    to the same state, leaf for leaf, and both step on alike."""
+    from test_torch_engine import positional_archives
+    a = tmp_path / "a"
+    eng = make_ref(a, wal_shards=2)
+    rng = np.random.default_rng(12)
+    for _ in range(6):
+        eng.step(rng.integers(0, K + 1, N).astype(np.int32),
+                 rng.integers(1, 9, (N, K, 1)).astype(np.int32))
+    eng.checkpoint()
+    for _ in range(3):
+        eng.step(np.full(N, 4, np.int32), np.ones((N, K, 1), np.int32))
+    eng._dur.flush_all()
+    state = eng.state
+    eng.close()
+    ckpt = a / "ckpt.npz"
+    with np.load(str(ckpt)) as z:
+        checkpointed = {k: z[k] for k in z.files if k != "__meta__"}
+    ckpt_state = ref_lockstep.LaneState(*(
+        jax.tree.unflatten(jax.tree.structure(getattr(state, name)), [
+            checkpointed[f"{name}:{j}"] for j in range(
+                len(jax.tree.leaves(getattr(state, name))))])
+        for name in ref_lockstep.LaneState._fields))
+    os.replace(positional_archives(ckpt_state, tmp_path)[kind], ckpt)
+    b = tmp_path / "b"
+    shutil.copytree(a, b)
+    port = make_port(a, wal_shards=2)
+    ref = make_ref(b, wal_shards=2)
+    got, want = state_to_numpy(port.state), ref_arrays(ref.state)
+    assert_same_arrays(got, want, f"{kind} dir reopened")
+    if kind == "pre_telemetry":
+        # the checkpoint's telemetry is gone: only the replayed WAL tail
+        # counts, below what the writer counted
+        steps = f"telem:{ref_lockstep.LaneTelemetry._fields.index('steps')}"
+        assert got[steps].sum() < np.asarray(state.telem.steps).sum()
+    for e in (ref, port):
+        e._dur.flush_all()
+        e.step(np.full(N, 2, np.int32), np.ones((N, K, 1), np.int32))
+        e._dur.flush_all()
+    assert_same_arrays(state_to_numpy(port.state), ref_arrays(ref.state),
+                       f"{kind} after a step")
+    ref.close()
+    port.close()
+
+
 # -- the reference's behaviour tests, ported ---------------------------------
 
 def make_engine(path, **kw):

@@ -289,6 +289,88 @@ def test_restore_defaults_and_refusals():
                          port.state, port.device, defaults)
 
 
+def positional_archives(state, directory) -> dict:
+    """The reference ``state`` written as the reference's positional
+    archives (``a<i>`` keys over ``jax.tree.flatten(state)``): the full
+    one, and the pre-telemetry one without the ``telem`` leaves.
+    Returns ``{kind: path}``."""
+    flat = [np.asarray(x) for x in jax.tree.flatten(state)[0]]
+    n_tel = len(ref_lockstep.LaneTelemetry._fields)
+    tel_at = len(jax.tree.flatten(tuple(
+        state[:ref_lockstep.LaneState._fields.index("telem")]))[0])
+    meta = np.frombuffer(repr({"schema": None}).encode(), dtype=np.uint8)
+    paths = {}
+    for kind, leaves in (("full", flat),
+                         ("pre_telemetry",
+                          flat[:tel_at] + flat[tel_at + n_tel:])):
+        paths[kind] = str(directory / f"{kind}.npz")
+        np.savez(paths[kind], __meta__=meta,
+                 **{f"a{i}": a for i, a in enumerate(leaves)})
+    return paths
+
+
+POSITIONAL_KW = dict(ring_capacity=64, max_step_cmds=4)
+
+
+def positional_pair(n=8, p=3):
+    return (ref_lockstep.LockstepEngine(RefCounter(), n, p, donate=False,
+                                        **POSITIONAL_KW),
+            port_lockstep.LockstepEngine(CounterMachine(), n, p,
+                                         device="cpu", **POSITIONAL_KW))
+
+
+@pytest.mark.parametrize("kind", ["full", "pre_telemetry"])
+def test_positional_checkpoints_restore_as_in_reference(tmp_path, kind):
+    """The reference's positional archives (``a<i>`` keys, with and
+    without the telemetry leaves) restore into both engines alike: every
+    leaf equal, dtypes included; the pre-telemetry archive zero-fills
+    ``telem``, and both engines step on alike."""
+    writer = positional_pair()[0]
+    rng = np.random.default_rng(11)
+    for _ in range(5):
+        writer.step(rng.integers(0, 5, 8).astype(np.int32),
+                    rng.integers(-9, 9, (8, 4, 1)).astype(np.int32))
+    path = positional_archives(writer.state, tmp_path)[kind]
+    ref, port = positional_pair()
+    ref.restore(path)
+    port.restore(path)
+    assert_same(ref, port, what=f"{kind} restored")
+    want = ref_arrays(writer.state)
+    got = state_to_numpy(port.state)
+    for k, w in want.items():
+        if kind == "pre_telemetry" and k.startswith("telem:"):
+            assert got[k].dtype == w.dtype and not got[k].any(), k
+        else:
+            assert_same_arrays({k: got[k]}, {k: w}, f"{kind} {k}")
+    assert int(writer.state.telem.steps.sum()) == 5 * 8
+    for e in (ref, port):
+        e.uniform_step(3, payload_value=2)
+    assert_same(ref, port, what=f"{kind} after a step")
+
+
+def test_positional_checkpoint_refusals_match_reference(tmp_path):
+    """A positional archive with a leaf count neither full nor
+    pre-telemetry, and one of another geometry, are refused by both
+    engines with the same message."""
+    writer = positional_pair()[0]
+    writer.uniform_step(4)
+    path = positional_archives(writer.state, tmp_path)["full"]
+    with np.load(path) as z:
+        short = {k: z[k] for k in z.files}
+    del short[f"a{len(short) - 2}"]
+    short_path = str(tmp_path / "short.npz")
+    np.savez(short_path, **short)
+    for archive, engines, match in (
+            (short_path, positional_pair(), "leaf count mismatch"),
+            (path, positional_pair(n=9), "geometry mismatch")):
+        messages = []
+        for e in engines:
+            with pytest.raises(ValueError, match=match) as exc:
+                e.restore(archive)
+            messages.append(str(exc.value))
+        assert messages[0] == messages[1], messages
+
+
 def test_registries_match_reference():
     assert port_metrics.ENGINE_PIPELINE_FIELDS == \
         ref_metrics.ENGINE_PIPELINE_FIELDS

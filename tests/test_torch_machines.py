@@ -7,8 +7,14 @@ Batched machine state has leading dims [N, P], as the engine holds it.
 Also the exact one-hot selection (``ops/exact.py``) against the
 reference's 16-bit-half matmul, and, on a card only (``cuda`` marker), the
 two fold kernels (``ops/csrc/slot_fold.cu``, ``ops/csrc/fifo_fold.cu``)
-against their plain version, the machine's ``sequential_window_fold``."""
+against their plain version, the machine's ``sequential_window_fold``.
+
+The FIFO's hard windows (full ready windows, several rows requeued at
+once, heads and tickets at the int32 edges, duplicate tickets) come from
+``chip_smoke.py``'s generator, so the CPU and the card hold the same
+cases."""
 import functools
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +33,8 @@ from ra_tpu_torch.models import JitFifoMachine, JitKvMachine, \
     RegisterMachine, TtlKvMachine
 from ra_tpu_torch.models import jit_fifo
 from ra_tpu_torch.ops import exact, fifo_fold, slot_fold
+
+from chip_smoke import fold_operands
 
 N, P = 6, 3
 CPU = torch.device("cpu")
@@ -73,6 +81,10 @@ MACHINES = {
     "fifo_drop_head": (lambda: RefFifo(8, 4, 2, overflow="drop_head"),
                        lambda: JitFifoMachine(8, 4, 2, overflow="drop_head"),
                        _fifo_cmds),
+    # a capacity that is no power of two; K and C that are none either
+    "fifo_odd": (lambda: RefFifo(12, 5, 3, overflow="drop_head"),
+                 lambda: JitFifoMachine(12, 5, 3, overflow="drop_head"),
+                 _fifo_cmds),
 }
 
 
@@ -219,6 +231,112 @@ def test_fifo_batch_apply_window_wider_than_queue(overflow):
     assert_tree_equal(got, want, f"wider than the queue, {overflow}")
 
 
+def hard_fifo_operands(m, rng, n, p, a, state=None, clean=False):
+    """(meta, commands, mask, state) of one of ``chip_smoke.py``'s hard
+    FIFO windows on the CPU (a ``fifo_hard_state`` start when ``state`` is
+    None), its ops redrawn from 0-2 where ``clean``."""
+    meta, cmds, mask, state = fold_operands(m, "fifo", n, p, a, rng, CPU,
+                                            state, hard=True)
+    if clean:
+        cmd = cmds[:, 0].clone()
+        cmd[..., 0] = torch.from_numpy(rng.integers(0, 3, (n, a)))
+        cmds = cmd[:, None].expand(cmds.shape)
+    return meta, cmds, mask, state
+
+
+def ref_fold_by_row(ref_m, meta, cmds, mask, state):
+    """The reference's ``sequential_window_fold`` of each replica row
+    alone ([1, 1] leading dims), as numpy [n, p, ...]."""
+    fold = jax.jit(ref_m.sequential_window_fold)
+    n, p = mask.shape[:2]
+    out = {k: np.empty(v.shape, np.int32) for k, v in state.items()}
+    for i in range(n):
+        for j in range(p):
+            got = fold({"index": jnp.asarray(meta["index"][i:i + 1, j:j + 1]),
+                        "term": jnp.asarray(meta["term"][i:i + 1])},
+                       jnp.asarray(cmds[i:i + 1, j:j + 1]),
+                       jnp.asarray(mask[i:i + 1, j:j + 1]),
+                       {k: jnp.asarray(v[i:i + 1, j:j + 1])
+                        for k, v in state.items()})
+            for k, v in got.items():
+                out[k][i, j] = np.asarray(v)[0, 0]
+    return out
+
+
+@pytest.mark.parametrize("q,k,c,overflow", [(8, 4, 2, "reject"),
+                                            (12, 5, 3, "drop_head"),
+                                            (40, 13, 9, "reject"),
+                                            (256, 8, 4, "drop_head")])
+def test_fifo_hard_windows_match_reference(q, k, c, overflow):
+    """The hard FIFO windows the kernel checks use (full ready windows,
+    returns and cancels of several rows at once, heads and tickets at the
+    int32 edges, duplicate tickets, ids that wrap), two chained: the
+    port's in-order fold equals the reference's fold of each replica
+    alone, and where Q is a power of two its fold of the whole batch; on
+    clean windows the port's ``jit_apply_batch`` (the fast fold) equals
+    the reference's."""
+    ref_m = RefFifo(q, k, c, overflow=overflow)
+    port_m = JitFifoMachine(q, k, c, overflow=overflow)
+    rng = np.random.default_rng(q + k + c)
+    n, p, a = 12, 3, 40
+    state = None
+    for w in range(2):
+        meta, cmds, mask, state = hard_fifo_operands(port_m, rng, n, p, a,
+                                                     state)
+        got = port_m.sequential_window_fold(meta, cmds, mask, state)
+        want = ref_fold_by_row(ref_m, meta, cmds, mask, state)
+        assert_tree_equal(got, want, f"window {w}, by row")
+        if q & (q - 1) == 0:
+            batch = jax.jit(ref_m.sequential_window_fold)(
+                {"index": jnp.asarray(meta["index"]),
+                 "term": jnp.asarray(meta["term"])}, jnp.asarray(cmds),
+                jnp.asarray(mask), {k_: jnp.asarray(v)
+                                    for k_, v in state.items()})
+            assert_tree_equal(got, batch, f"window {w}, batch")
+        state = got
+    meta, cmds, mask, _ = hard_fifo_operands(port_m, rng, n, p, a, state,
+                                             clean=True)
+    want = jax.jit(ref_m.jit_apply_batch)(
+        {"index": jnp.asarray(meta["index"]),
+         "term": jnp.asarray(meta["term"])}, jnp.asarray(cmds),
+        jnp.asarray(mask), {k_: jnp.asarray(v) for k_, v in state.items()})
+    assert_tree_equal(port_m.jit_apply_batch(meta, cmds, mask, state), want,
+                      "clean window, fast fold")
+
+
+def test_fifo_bystander_row_keeps_its_ring_at_the_int32_edge():
+    """The one place the port's fold departs from the reference's batch
+    fold, pinned: with Q not a power of two and a row's head at the int32
+    edge, the reference's merge (behind one lax.cond over the batch)
+    moves that row's ready entries when ANOTHER row of the batch
+    requeues, though the row itself requeues nothing.  The port merges
+    only the rows that requeue, as the reference does for a row folded
+    alone, so replicas that apply a command in different batches stay
+    equal."""
+    Q, K, C = 12, 2, 1
+    ref_m, port_m = RefFifo(Q, K, C), JitFifoMachine(Q, K, C)
+    st = {k: np.array(v)[:2].copy() for k, v in ref_m.jit_init(2).items()}
+    st["buf"][:] = np.arange(Q)
+    st["mid"][:] = np.arange(Q)
+    st["head"][:] = [0, -2 ** 31]                # row 1 at the edge
+    st["tail"][:] = [4, -2 ** 31 + 4]
+    st["co_id"][0, 0], st["co_mid"][0, 0] = 7, 1  # row 0 holds id 7
+    cmd = np.array([[5, 7, 0], [0, 0, 0]], np.int32)   # row 0 returns it
+    meta_r = {"index": jnp.zeros(2, jnp.int32), "term": jnp.int32(1)}
+    ref_batch, _ = ref_m.jit_apply(meta_r, jnp.asarray(cmd),
+                                   {k: jnp.asarray(v) for k, v in st.items()})
+    got, _ = port_m.jit_apply(
+        {"index": torch.zeros(2, dtype=torch.int32), "term": torch.tensor(1)},
+        torch.from_numpy(cmd), {k: torch.from_numpy(v) for k, v in st.items()})
+    # row 1 alone: its noop leaves it as it was, in both packages
+    assert np.array_equal(got["buf"][1].numpy(), st["buf"][1])
+    assert not np.array_equal(np.asarray(ref_batch["buf"])[1], st["buf"][1])
+    # row 0, which requeues, is merged alike
+    assert_tree_equal({k: v[0] for k, v in got.items()},
+                      {k: np.asarray(v)[0] for k, v in ref_batch.items()},
+                      "the requeueing row")
+
+
 #: the reference's scripted FIFO sequences (test_jit_fifo.py): consumer
 #: credit, cancel and down; a return and a cancel interleaving by ticket;
 #: drop_head with and without a ready message to drop
@@ -319,8 +437,9 @@ def test_encoders_match_reference(name):
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """The kernels' wrappers check before they build or launch: CPU
-    tensors, a wrong dtype or shape, or an output that aliases the state
-    are refused."""
+    tensors, a wrong dtype or shape, an output that aliases the state, a
+    checkout table wider than a warp, or a ring the FIFO kernel cannot
+    fold are refused."""
     m = JitKvMachine(16)
     st = m.jit_init(4, CPU)[:, None].contiguous()                # [4,1,16]
     cmds = torch.zeros((4, 1, 3, 4), dtype=torch.int32)
@@ -349,6 +468,45 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="keys"):
         fifo_fold.fifo_fold_cuda(cmds[..., :3], mask, {"buf": fs["buf"]},
                                  fo, drop_head=False)
+    # a checkout table wider than a warp, and a ring beyond shared memory
+    # whose capacity is not a power of two, are refused before anything
+    # is built
+    for machine in (JitFifoMachine(8, 33, 2),
+                    JitFifoMachine(fifo_fold.MAX_SHARED_RING + 2, 4, 2)):
+        big = {k: v[:, None].contiguous()
+               for k, v in machine.jit_init(1, CPU).items()}
+        with pytest.raises(ValueError, match="takes 1 <= K"):
+            fifo_fold.fifo_fold_cuda(cmds[:1, :, :, :3], mask[:1], big,
+                                     big, drop_head=False)
+
+
+def test_cuda_engine_refuses_a_fifo_its_kernel_cannot_fold(monkeypatch):
+    """Built for the card, an engine refuses at once a FIFO the fold
+    kernel cannot fold (more than 32 checkout slots, or a capacity past
+    the shared-memory ring that is no power of two), with the limits in
+    the message, and warns for any capacity that is no power of two; on
+    the CPU it takes them all.  (The device is faked: the check comes
+    before anything is allocated.)"""
+    from ra_tpu_torch.engine import lockstep as port_lockstep
+    monkeypatch.setattr(port_lockstep, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    for m in (JitFifoMachine(fifo_fold.MAX_SHARED_RING + 2, 4, 2),
+              JitFifoMachine(64, 33, 2)):
+        with pytest.raises(ValueError, match="up to 32 checkout slots and "
+                                             "a capacity up to 19328 or a "
+                                             "power of two"):
+            port_lockstep.LockstepEngine(m, 4, 3)
+    cuda = torch.device("cuda")
+    for q in (12, fifo_fold.MAX_SHARED_RING):
+        with pytest.warns(RuntimeWarning, match="not a power of two"):
+            JitFifoMachine(q, 4, 40).check_device(cuda)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for m in (JitFifoMachine(2 ** 15, 8, 40), JitFifoMachine(256, 32, 4),
+                  JitKvMachine(20000)):
+            m.check_device(cuda)
+        JitFifoMachine(fifo_fold.MAX_SHARED_RING + 2, 33, 2).check_device(
+            CPU)
 
 
 # -- the fold kernels on the card ---------------------------------------------
@@ -372,8 +530,8 @@ def _on(tree, dev):
 def test_fold_kernel_matches_plain_on_card(cuda_device, name, n, p, a):
     """The machine's in-order fold on the card (its fold kernel) against
     the plain version on the same inputs, on mixed windows and on the
-    clean ones the reference's fast fold takes: every leaf equal, and one
-    launch a call."""
+    clean ones the reference's fast fold takes, and for the FIFO on the
+    hard windows: every leaf equal, and one launch a call."""
     port_m, gen = MACHINES[name][1](), MACHINES[name][2]
     rng = np.random.default_rng(n + p + a)
     st = jax.tree.map(lambda x: x[:, None].expand(
@@ -397,6 +555,66 @@ def test_fold_kernel_matches_plain_on_card(cuda_device, name, n, p, a):
         torch.cuda.synchronize()
         assert_tree_equal(_on(got, CPU), jax.tree.map(
             lambda x: x.numpy(), want), f"{name} clean={clean}")
+        assert mod.LAUNCHES == before + 1
+        st = want
+    if not name.startswith("fifo"):
+        return
+    # the FIFO's hard windows: full, at the int32 edges, equal ranks
+    st = None
+    for w in range(3):
+        meta, cmds, mask, st = hard_fifo_operands(port_m, rng, n, p, a, st)
+        want = port_m.sequential_window_fold(meta, cmds, mask, st)
+        got = port_m.in_order_fold(_on(meta, cuda_device),
+                                   cmds.to(cuda_device),
+                                   mask.to(cuda_device),
+                                   _on(st, cuda_device))
+        torch.cuda.synchronize()
+        assert_tree_equal(_on(got, CPU), jax.tree.map(
+            lambda x: x.numpy(), want), f"{name} hard window {w}")
+        st = want
+
+
+#: tables past the kernels' shared-memory layouts, which take their
+#: device-memory routes: name -> (port machine, fold_operands kind, hard)
+WIDE = {
+    # a ring too long for shared memory (a power of two), and the longest
+    # one kept there (no power of two), one row a block
+    "fifo_ring_32768": (lambda: JitFifoMachine(32768, 8, 4), "fifo", True),
+    "fifo_ring_19328": (lambda: JitFifoMachine(19328, 8, 4, "drop_head"),
+                        "fifo", True),
+    # more consumers than a warp has lanes
+    "fifo_consumers_40": (lambda: JitFifoMachine(64, 32, 40, "drop_head"),
+                          "fifo", True),
+    "fifo_consumers_40_random": (lambda: JitFifoMachine(16, 4, 40),
+                                 "fifo", False),
+    # cell files too wide for one row in shared memory
+    "kv_20000": (lambda: JitKvMachine(20000), "kv", False),
+    "ttl_kv_9000": (lambda: TtlKvMachine(9000), "ttl_kv", False),
+    "registers_70000": (lambda: RegisterMachine(70000), "registers", False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_fold_kernel_takes_wide_tables_on_card(cuda_device, name):
+    """Rings, consumer tables and cell files wider than the kernels keep
+    in shared memory or lanes: the kernel on the card equals the plain
+    fold on the CPU over three chained windows, one launch a call."""
+    make, kind, hard = WIDE[name]
+    m = make()
+    mod = fifo_fold if kind == "fifo" else slot_fold
+    rng = np.random.default_rng(len(name))
+    st = None
+    for w in range(3):
+        meta, cmds, mask, st = fold_operands(m, kind, 5, 3, 40, rng, CPU,
+                                             st, hard=hard)
+        want = m.sequential_window_fold(meta, cmds, mask, st)
+        before = mod.LAUNCHES
+        got = m.in_order_fold(_on(meta, cuda_device), cmds.to(cuda_device),
+                              mask.to(cuda_device), _on(st, cuda_device))
+        torch.cuda.synchronize()
+        assert_tree_equal(_on(got, CPU), jax.tree.map(
+            lambda x: x.numpy(), want), f"{name} window {w}")
         assert mod.LAUNCHES == before + 1
         st = want
 
