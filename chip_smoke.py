@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of ra_tpu_torch on one NVIDIA GPU (built for the H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Phases, each printing one JSON line; any failure raises and exits
 non-zero (there is no CPU path and no fallback to a plain version):
@@ -120,14 +120,39 @@ non-zero (there is no CPU path and no fallback to a plain version):
              slot_fold.cu on the card), (c) TtlKvMachine(64) with
              put/get/delete/watch; the same numbers, end states equal to
              plain models
+  stream_path
+             StreamMachine() (a ring of 64, 4 groups) at 10,000 x 5
+             through the same driver: (a) the firehose, appends only (the
+             reference's fast fold; the stream decoder on the card), (b) a
+             consumer mix (12 appends, 2 cursor commits near the tail, a
+             truncate and an invalid op in every 16) with 16 reads a lane
+             riding every dispatch; the same numbers, the end state equal
+             to a plain model (StreamModel), every served read equal to
+             the model at its watermark, none below the count committed
+             before it registered
+  wire_path  run_wire_soak at bench.py --wire's defaults: 100,000 loopback
+             and 32 socket connections, 1,024 lanes x 3, 12 waves of
+             50,000 ops, durable with 2 WAL shards under build/, a
+             reconnect storm; the soak's exactly-once oracle, its tail
+             row, the device's idle share over the rung's last 3 waves
+             (profiled), and the dedup fold's device time at the path's
+             window
+
+The fold_kernels phase also holds the stream decoder (random, append-only,
+int32-edge and invalid-op windows, a ring of 5 and one of 30,000), and a
+FIFO of capacity 12 and a stream of capacity 5 whose batch folds on the
+card equal the CPU's at the int32 edge; machine_parity also runs the
+stream and the dedup counter.
 
 then the kernels summary line (launches on every path, each counted from
-0 just before it: main, superstep, durable, fifo and kv; "launches" is
+0 just before it: main, superstep, durable, fifo, kv, stream and wire;
+"launches" is
 the count on the kernel's own path), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
@@ -1279,6 +1304,38 @@ def fold_commands(kind: str, rng, n: int, a: int, S: int) -> np.ndarray:
                      value, last], -1).astype(np.int32)
 
 
+#: int32 edges and near-zero values the stream windows start from
+STREAM_EDGE = np.array([0, 3, 2 ** 31 - 2, 2 ** 31 - 1, -2 ** 31, -7],
+                       np.int64)
+
+
+def stream_state(rng, lead: tuple, Q: int, G: int) -> dict:
+    """StreamMachine states (numpy int32) with leading dims ``lead``: tails
+    and bases at the int32 edges and negative (a tail's slot is then a
+    floor mod, and its next append wraps), cursors anywhere."""
+    tail = wrap32(rng.choice(STREAM_EDGE, lead) + rng.integers(-2, 3, lead))
+    base = wrap32(np.where(rng.random(lead) < 0.5,
+                           tail.astype(np.int64) - Q,
+                           rng.choice(STREAM_EDGE, lead)))
+    return {"buf": rng.integers(-5, 100, lead + (Q,)).astype(np.int32),
+            "tail": tail, "base": base,
+            "cursors": rng.choice(STREAM_EDGE, lead + (G,)).astype(np.int32)}
+
+
+def stream_commands(rng, shape: tuple, G: int, clean: bool) -> np.ndarray:
+    """[..., 3] StreamMachine commands: appends (some of negative values,
+    invalid), and unless ``clean`` cursor commits (bad groups, offsets
+    past the tail and at the int32 edges), truncates and unknown ops."""
+    op = rng.integers(0, 2 if clean else 5, shape)
+    a = np.where(rng.random(shape) < 0.15, -1, rng.integers(0, 90, shape))
+    a = np.where(op == 2, rng.integers(-1, G + 2, shape), a)
+    a = np.where((op == 3) & (rng.random(shape) < 0.3),
+                 rng.choice(STREAM_EDGE, shape), a)
+    b = np.where(rng.random(shape) < 0.2, rng.choice(STREAM_EDGE, shape),
+                 rng.integers(-5, 90, shape))
+    return np.stack([op, a, b], -1).astype(np.int32)
+
+
 def wrap32(x) -> np.ndarray:
     """Integers cut to int32 as two's complement, as XLA's int32 wraps."""
     return ((np.asarray(x, np.int64) + 2 ** 31) % 2 ** 32 -
@@ -1371,10 +1428,20 @@ def fold_operands(machine, kind, n, p, a, rng, dev, state=None,
     """(meta, commands, mask, state) of one window on ``dev``: the lane's
     commands through a stride-0 member axis, as the engine passes them.
     ``hard`` (FIFO): a ``fifo_hard_state`` start and ``fifo_hard_commands``
-    windows instead of random ones."""
+    windows instead of random ones; for the stream, ``hard`` starts from
+    ``stream_state``'s int32 edges, and ``"clean"`` also keeps the windows
+    to noops and appends."""
     from ra_tpu_torch.core.tree import tree_map
     S = getattr(machine, "n_keys", getattr(machine, "n_slots", 0))
-    if hard:
+    if kind == "stream":
+        if state is None and hard:
+            lanes = stream_state(rng, (n,), machine.capacity,
+                                 machine.groups)
+            state = {k: torch.from_numpy(v).to(dev)[:, None].expand(
+                (n, p) + v.shape[1:]).contiguous() for k, v in lanes.items()}
+        cmd = torch.from_numpy(stream_commands(
+            rng, (n, a), machine.groups, clean=hard == "clean")).to(dev)
+    elif hard:
         if state is None:
             lanes = fifo_hard_state(rng, n, machine.capacity,
                                     machine.checkout_slots,
@@ -1453,7 +1520,7 @@ def phase_fold_kernels(dev) -> list:
     the FIFO also on the consumer mix's window at full ready depth."""
     from ra_tpu_torch.core.tree import tree_leaves, tree_map
     from ra_tpu_torch.models import JitFifoMachine, JitKvMachine, \
-        RegisterMachine, TtlKvMachine
+        RegisterMachine, StreamMachine, TtlKvMachine
     from ra_tpu_torch.ops import _fold, fifo_fold, slot_fold
     # case: (machine, kind, module, shapes, hard windows)
     cases = {
@@ -1508,6 +1575,23 @@ def phase_fold_kernels(dev) -> list:
                         [(129, 3, 40)], False),
         "registers_wide": (lambda: RegisterMachine(70_000), "registers",
                            slot_fold, [(33, 3, 30)], False),
+        # the stream decoder: random windows of every op (bad groups,
+        # negative values, unknown ops), the same from tails and bases at
+        # the int32 edges, append-only windows (the reference's fast
+        # fold), a ring that is no power of two, A > Q, and a ring too
+        # wide for a row in shared memory
+        "stream": (lambda: StreamMachine(64, 4), "stream", slot_fold,
+                   [(10_000, 5, 130), (1_001, 1, 1), (300, 7, 20)], False),
+        "stream_edge": (lambda: StreamMachine(64, 4), "stream", slot_fold,
+                        [(10_000, 5, 130), (1_001, 3, 40), (129, 16, 300)],
+                        True),
+        "stream_append_only": (lambda: StreamMachine(64, 4), "stream",
+                               slot_fold, [(10_000, 5, 130), (300, 7, 200)],
+                               "clean"),
+        "stream_odd": (lambda: StreamMachine(5, 2), "stream", slot_fold,
+                       [(1_001, 3, 40), (33, 16, 20)], True),
+        "stream_wide": (lambda: StreamMachine(30_000, 40), "stream",
+                        slot_fold, [(33, 3, 40)], True),
     }
 
     def check(case, m, mod, meta, cmds, mask, state):
@@ -1575,7 +1659,8 @@ def phase_fold_kernels(dev) -> list:
                            "max_abs_err": err})
         # time the kernel alone at the path's width, on operands prepared
         # once
-        if case in ("registers", "kv", "ttl_kv", "fifo_reject", "fifo_hard"):
+        if case in ("registers", "kv", "ttl_kv", "fifo_reject", "fifo_hard",
+                    "stream"):
             n, p, a = shapes[0]
             rng = np.random.default_rng(7)
             timed[case] = timing(m, kind, *fold_operands(
@@ -1602,6 +1687,49 @@ def phase_fold_kernels(dev) -> list:
     checks.append({"case": "fifo_consumer_full", "shape": [5_000, 5, 130],
                    "windows": 1, "exact": True, "max_abs_err": err})
     timed["fifo_consumer_full"] = timing(m, "fifo", *ops)
+    # capacities that are no power of two, a FIFO of 12 and a stream of
+    # 5: the card keeps the reference's choice between the fast and the
+    # in-order fold, so clean windows from heads and tails at the int32
+    # edge fold as on the CPU (the stream's windows alternate clean and
+    # mixed)
+    rng = np.random.default_rng(12)
+    fifo_lanes = fifo_hard_state(rng, 1_001, 12, 5, 3)
+
+    def fifo_window(w):
+        return np.stack([rng.integers(0, 3, (1_001, 40)),
+                         rng.integers(0, 1000, (1_001, 40)),
+                         np.zeros((1_001, 40), np.int64)],
+                        -1).astype(np.int32)
+    for case, m, mod, lanes, window in (
+            ("fifo_q12_batch_fold_card_vs_cpu", JitFifoMachine(12, 5, 3),
+             fifo_fold, fifo_lanes, fifo_window),
+            ("stream_q5_batch_fold_card_vs_cpu", StreamMachine(5, 2),
+             slot_fold, stream_state(rng, (1_001,), 5, 2),
+             lambda w: stream_commands(rng, (1_001, 40), 2,
+                                       clean=w % 2 == 0))):
+        if not m.fast_fold_on_card:
+            raise AssertionError(f"{case}: the card would not keep the "
+                                 "reference's fold choice")
+        state = {k: torch.from_numpy(v)[:, None].expand(
+            (1_001, 3) + v.shape[1:]).contiguous() for k, v in lanes.items()}
+        before = mod.LAUNCHES
+        for w in range(3):
+            cmds = torch.from_numpy(window(w))[:, None].expand(
+                1_001, 3, 40, 3)
+            mask = torch.from_numpy(rng.random((1_001, 3, 40)) < 0.9)
+            meta = {"index": torch.ones((1_001, 3, 40), dtype=torch.int32),
+                    "term": torch.ones((), dtype=torch.int32)}
+            want = m.jit_apply_batch(meta, cmds, mask, state)
+            on = tree_map(lambda x: x.to(dev), (meta, cmds, mask, state))
+            got = m.jit_apply_batch(*on)
+            if any(not torch.equal(g.cpu(), t) for g, t in
+                   zip(tree_leaves(got), tree_leaves(want))):
+                raise AssertionError(f"{case}: the card's batch fold != the "
+                                     "CPU's at the int32 edge")
+            state = want
+        checks.append({"case": case, "shape": [1_001, 3, 40], "windows": 3,
+                       "exact": True, "max_abs_err": 0,
+                       "kernel_launches": mod.LAUNCHES - before})
     # the vectorised fast fold (torch ops) against the kernel on the same
     # window, the paths' bench windows: clean windows, where the
     # reference takes the fast fold and the card runs the kernel
@@ -1609,7 +1737,11 @@ def phase_fold_kernels(dev) -> list:
     fifo_rows = np.zeros((130, 3), np.int32)
     fifo_rows[0::2] = (1, 7, 0)
     fifo_rows[1::2] = (2, 0, 0)
+    stream_rows = np.stack([np.ones((10_000, 130)),
+                            rng.integers(0, 1000, (10_000, 130)),
+                            np.zeros((10_000, 130))], -1).astype(np.int32)
     windows = {
+        "stream": (StreamMachine(64, 4), 10_000, stream_rows),
         "kv": (JitKvMachine(64), 10_000, np.stack(
             [rng.integers(1, 3, (10_000, 130)),
              rng.integers(0, 64, (10_000, 130)),
@@ -1662,6 +1794,7 @@ def phase_fold_kernels(dev) -> list:
                     "library_ms": None})
     out[0]["ttl_kv"] = timed["ttl_kv"]
     out[0]["registers"] = timed["registers"]
+    out[0]["stream"] = timed["stream"]
     out[1]["consumer_full"] = timed["fifo_consumer_full"]
     out[1]["hard"] = timed["fifo_hard"]
     return out
@@ -1678,6 +1811,15 @@ def parity_payloads(name: str, rng, k: int, n: int, kc: int) -> np.ndarray:
                          rng.integers(0, 4, shape)], -1).astype(np.int32)
     if name in ("sequential", "float"):
         return rng.integers(-9, 10, shape + (1,)).astype(np.int32)
+    if name == "stream":
+        op = rng.choice([0, 1, 1, 1, 2, 3, 4], shape)
+        return np.stack([op, rng.integers(-2, 40, shape),
+                         rng.integers(-3, 60, shape)], -1).astype(np.int32)
+    if name == "dedup":
+        # client ops with duplicates, stale replays and bad slots
+        return np.stack([rng.integers(-1, 18, shape),
+                         rng.integers(0, 12, shape),
+                         rng.integers(1, 5, shape)], -1).astype(np.int32)
     op = rng.integers(0, 6, shape)
     return np.stack([op, rng.integers(-2, 18, shape),
                      rng.integers(-2, 60, shape),
@@ -1686,13 +1828,15 @@ def parity_payloads(name: str, rng, k: int, n: int, kc: int) -> np.ndarray:
 
 def parity_machines():
     """(name, make, fold kernel module or None, reads) for the parity
-    phase: the four machines, a supports_batch_apply=False counter and a
+    phase: the four machines, the stream (its decoder) and the dedup
+    counter (torch ops alone), a supports_batch_apply=False counter and a
     float-state machine (the reference's test_scan_machine_float_state_
     exact), both on the sequential apply path."""
     from ra_tpu_torch.core.machine import JitMachine
     from ra_tpu_torch.models import CounterMachine, JitFifoMachine, \
-        JitKvMachine, RegisterMachine, TtlKvMachine
+        JitKvMachine, RegisterMachine, StreamMachine, TtlKvMachine
     from ra_tpu_torch.ops import fifo_fold, slot_fold
+    from ra_tpu_torch.wire import DedupCounterMachine
 
     class Sequential(CounterMachine):
         supports_batch_apply = False
@@ -1714,6 +1858,8 @@ def parity_machines():
             ("ttl_kv", lambda: TtlKvMachine(16), slot_fold, True),
             ("fifo", lambda: JitFifoMachine(16, 4, 2, "drop_head"),
              fifo_fold, False),
+            ("stream", lambda: StreamMachine(8, 3), slot_fold, True),
+            ("dedup", lambda: DedupCounterMachine(16), None, False),
             ("sequential", Sequential, None, True),
             ("float", FloatAcc, None, False)]
 
@@ -1937,16 +2083,20 @@ def ttl_oracle(pattern: np.ndarray, steps: int, S: int) -> dict:
 
 def run_machine_path(phase: str, mix: str, machine, fold: str, blocks,
                      check, LockstepEngine, DispatchAheadDriver,
-                     n_lanes: int, dev) -> dict:
+                     n_lanes: int, dev, reads=None) -> dict:
     """A machine's slice at full width: ``n_lanes`` x 5 members, ring
     1,024, 128 commands a lane a step, apply window 130, volatile,
     through DispatchAheadDriver at K = 8: 2 warm, 25 timed and 3 profiled
     dispatches of ``blocks(d)`` (host numpy), one empty dispatch to
     settle, then replica agreement and ``check(leaves, steps)`` (the
-    mix's plain model against the machine state leaves).  The fold kernel ``fold`` is captured once an inner
-    step.  Returns the launches of every kernel on the path."""
+    mix's plain model against the machine state leaves).  The fold kernel
+    ``fold`` is captured once an inner step.  ``reads(d)``, when given, is the read block riding dispatch d
+    (16 reads a lane); ``check`` then also takes ``(served, committed)``:
+    each dispatch's observed read outcome and the committed count a lane
+    before it.  Returns the launches of every kernel on the path."""
     from ra_tpu_torch.ops import commit_phase, fifo_fold, pallas_quorum, \
         slot_fold
+    from ra_tpu_torch.readback import Readback
     from ra_tpu_torch.step_profile import device_rows
     N, P, cmds, K = n_lanes, 5, 128, 8
     warm, timed, profiled = 2, 25, 3
@@ -1958,11 +2108,26 @@ def run_machine_path(phase: str, mix: str, machine, fold: str, blocks,
     torch.cuda.reset_peak_memory_stats()
     eng = LockstepEngine(machine, N, P, ring_capacity=1024,
                          max_step_cmds=cmds, apply_window=130,
-                         write_delay=1, device=dev)
+                         write_delay=1, max_step_reads=16, device=dev)
     drv = DispatchAheadDriver(eng, max_in_flight=2)
+    #: with reads: per dispatch d, d - 1's committed counts a lane
+    before: dict = {}
+    if reads is not None:
+        drv.read_obs = collections.deque()    # every dispatch's reads
+
+    def submit(d):
+        if reads is None:
+            drv.submit(*blocks(d))
+            return
+        before[d] = drv.submit(*blocks(d), read_blk=reads(d))
+        # copy out the counts that have landed, so their pinned buffers
+        # go back to the host allocator's pool
+        for k, h in before.items():
+            if isinstance(h, Readback) and h.is_ready():
+                before[k] = h.result().copy()
     d = 0
     for _ in range(warm):
-        drv.submit(*blocks(d))
+        submit(d)
         d += 1
     drv.drain()
     torch.cuda.synchronize()
@@ -1972,7 +2137,7 @@ def run_machine_path(phase: str, mix: str, machine, fold: str, blocks,
     def timed_window(d0):
         t0 = time.perf_counter()
         for i in range(timed):
-            drv.submit(*blocks(d0 + i))
+            submit(d0 + i)
         drv.drain()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
@@ -1984,7 +2149,7 @@ def run_machine_path(phase: str, mix: str, machine, fold: str, blocks,
                              ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         for _ in range(profiled):
-            drv.submit(*blocks(d))
+            submit(d)
             d += 1
         drv.drain()
         torch.cuda.synchronize()
@@ -2000,7 +2165,10 @@ def run_machine_path(phase: str, mix: str, machine, fold: str, blocks,
         name = e.key[:80]
         top[name] = top.get(name, 0.0) + e.self_device_time_total / 1e3
     n_blk, p_blk = blocks(0)
-    drv.submit(np.zeros_like(n_blk), p_blk)        # settle the last commits
+    zero_reads = None if reads is None else tuple(
+        np.zeros_like(x) for x in reads(0))
+    # settle the last commits (the same graph: reads ride as zeros)
+    drv.submit(np.zeros_like(n_blk), p_blk, read_blk=zero_reads)
     drv.drain()
     drv.close()
     steps = d * K
@@ -2032,7 +2200,13 @@ def run_machine_path(phase: str, mix: str, machine, fold: str, blocks,
     for k, v in leaves.items():       # replicas at equal applied agree
         if not (v == v[:, :1]).all():
             raise AssertionError(f"{phase} {mix}: replicas differ on {k}")
-    extra = check(leaves, steps)
+    if reads is None:
+        extra = check(leaves, steps)
+    else:
+        served = [o for o in drv.read_obs if "read_done" in o]
+        committed = {k: np.asarray(h) for k, h in before.items()
+                     if h is not None}
+        extra = check(leaves, steps, served, committed)
     inner = timed * K
     ms = seconds / inner * 1e3
     busy = (kernel_ms + copy_ms) / (profiled * K)
@@ -2213,7 +2387,354 @@ def phase_kv_path(LockstepEngine, DispatchAheadDriver, dev,
         LockstepEngine, DispatchAheadDriver, n_lanes, dev)
         for mix, make, blocks, check in kv_mixes(n_lanes)}
 
+class StreamModel:
+    """A plain numpy model of StreamMachine over N lanes (offsets in
+    int64, far from the int32 edge on this path): the ring, tail, base
+    and cursors, one command a lane at a time, and the three queries."""
+
+    def __init__(self, n: int, Q: int, G: int) -> None:
+        self.Q, self.G = Q, G
+        self.rows = np.arange(n)
+        self.buf = np.zeros((n, Q), np.int64)
+        self.tail = np.zeros(n, np.int64)
+        self.base = np.zeros(n, np.int64)
+        self.cursors = np.zeros((n, G), np.int64)
+
+    def apply(self, cmd: np.ndarray) -> None:
+        """One command a lane: ``cmd`` [N, 3]."""
+        op, a, b = (cmd[:, i].astype(np.int64) for i in range(3))
+        rows = self.rows
+        app = (op == 1) & (a >= 0)
+        self.buf[rows[app], self.tail[app] % self.Q] = a[app]
+        tail = self.tail + app
+        commit = (op == 2) & (a >= 0) & (a < self.G)
+        g = np.clip(a, 0, self.G - 1)
+        cur = np.minimum(np.maximum(np.maximum(self.cursors[rows, g], b),
+                                    0), tail)
+        self.cursors[rows[commit], g[commit]] = cur[commit]
+        trunc = op == 3
+        self.base = np.where(trunc, np.minimum(np.maximum(
+            np.maximum(self.base, a), 0), tail), self.base)
+        self.base = np.maximum(self.base, tail - self.Q)
+        self.tail = tail
+
+    def query(self, lanes: np.ndarray, q: np.ndarray) -> np.ndarray:
+        """Replies [len(lanes), Kr, 2] to queries ``q`` [len(lanes), Kr,
+        2]."""
+        op, a = q[..., 0].astype(np.int64), q[..., 1].astype(np.int64)
+        tail, base = self.tail[lanes, None], self.base[lanes, None]
+        ok = (a >= base) & (a < tail)
+        val = self.buf[lanes[:, None], np.clip(a, 0, None) % self.Q]
+        g_ok = (a >= 0) & (a < self.G)
+        cur = self.cursors[lanes[:, None], np.clip(a, 0, self.G - 1)]
+        code = np.where(op == 0, tail, np.where(op == 1, ok, g_ok))
+        value = np.where(op == 0, base, np.where(
+            op == 1, np.where(ok, val, -1), np.where(g_ok, cur, -1)))
+        return np.stack([code, value], -1)
+
+    def state(self) -> dict:
+        return {"buf": self.buf, "tail": self.tail, "base": self.base,
+                "cursors": self.cursors}
+
+
+def stream_mixes(N: int, seed: int, K: int = 8, dispatches: int = 30) -> list:
+    """The stream path's mixes, ``(mix, blocks(d), reads or None,
+    check)`` over ``N`` lanes of StreamMachine() (a ring of 64, 4
+    groups), 128 commands a lane a step, values from ``seed``: (a) the
+    firehose, appends of non-negative values only (windows the
+    reference's fast fold takes); (b) the consumer mix, per 16 commands
+    12 appends, 2 cursor commits of a group in [0, 4) to an offset within
+    the last 2Q or up to 8 past the tail, 1 truncate to the tail less
+    Q/2 and 1 invalid op (a bad group or a negative value), each lane its
+    own order and values, with 16 reads a lane riding every dispatch
+    (read(offset) over [base - 8, tail + 8), cursor(g) and bounds()).
+    A lane's step pattern repeats with its offsets moved by the tail's
+    advance a step (96 appends).  Every block and read block of the
+    ``dispatches`` a path runs is made before it starts (3.5 GB for (b)),
+    so the timed loop only hands them to the driver.  ``check`` holds the
+    replicas' final
+    state, and for (b) every served read at its watermark, against
+    ``StreamModel``; a read served below the count committed before it
+    was registered is a stale serve."""
+    cmds, Q, G = 128, 64, 4
+    rng = np.random.default_rng(seed)
+    lanes = np.arange(N)
+    fire = np.zeros((N, cmds, 3), np.int32)
+    fire[..., 0] = 1
+    fire[..., 1] = rng.integers(0, 1 << 20, (N, cmds))
+    # the consumer pattern: kinds per 16 (0 append, 1 commit, 2 truncate,
+    # 3 invalid), each lane its own order
+    kinds = np.tile(np.array([0] * 12 + [1, 1, 2, 3]), (N, cmds // 16))
+    kinds = rng.permuted(kinds.reshape(N, cmds // 16, 16), axis=2)
+    kinds = kinds.reshape(N, cmds)
+    bad_group = rng.random((N, cmds)) < 0.5
+    op = np.select([kinds == 0, kinds == 1, kinds == 2],
+                   [1, 2, 3], np.where(bad_group, 2, 1))
+    app = (kinds == 0)
+    rel = np.cumsum(app, axis=1) - app          # appends before, a step
+    advance = int(app.sum(axis=1)[0])           # 96 a step, every lane
+    a = np.select([kinds == 0, kinds == 1, kinds == 2],
+                  [rng.integers(0, 1 << 20, (N, cmds)),
+                   rng.integers(0, G, (N, cmds)), rel - Q // 2],
+                  np.where(bad_group, rng.choice([-1, G], (N, cmds)),
+                           -rng.integers(1, 9, (N, cmds))))
+    b = np.where(kinds == 1, rel + rng.integers(-2 * Q, 9, (N, cmds)),
+                 rng.integers(0, 9, (N, cmds)))
+    consumer = np.stack([op, a, b], -1).astype(np.int64)
+    moves = np.stack([np.zeros_like(kinds), (kinds == 2).astype(np.int64),
+                      (kinds == 1).astype(np.int64)], -1)
+
+    def consumer_step(t):
+        """[N, 128, 3] commands of step t: offsets moved by the tail."""
+        return (consumer + moves * (t * advance)).astype(np.int32)
+
+    n_full = np.full((K, N), cmds, np.int32)
+    fire_blk = np.broadcast_to(fire, (K, N, cmds, 3))
+    consumer_blks = [np.stack([consumer_step(d * K + j) for j in range(K)])
+                     for d in range(dispatches)]
+    # the reads of dispatch d: 16 a lane at inner step 0
+    queries = np.zeros((dispatches, N, 16, 2), np.int32)
+    for d in range(dispatches):
+        r = np.random.default_rng([seed, d])
+        tail = d * K * advance
+        kind = r.integers(0, 8, (N, 16))
+        queries[d, ..., 0] = np.where(kind < 5, 1,
+                                      np.where(kind < 7, 2, 0))
+        queries[d, ..., 1] = np.where(
+            kind < 5, r.integers(max(tail - Q - 8, -8), tail + 8, (N, 16)),
+            r.integers(-1, G + 1, (N, 16)))
+    n_read = np.zeros((K, N), np.int32)
+    n_read[0] = 16
+    read_blks = []
+    for d in range(dispatches):
+        q = np.zeros((K, N, 16, 2), np.int32)
+        q[0] = queries[d]
+        read_blks.append((n_read, q))
+
+    def reads(d):
+        return read_blks[d]
+
+    def model_run(step_rows, steps, at=None):
+        """The model through ``steps`` steps; ``at`` maps a command count
+        to a callback run on the model at that count."""
+        m = StreamModel(N, Q, G)
+        for t in range(steps):
+            rows = step_rows(t)
+            for j in range(cmds):
+                m.apply(rows[:, j])
+                if at and (t * cmds + j + 1) in at:
+                    at[t * cmds + j + 1](m)
+        return m
+
+    def final_check(leaves, m, what):
+        for k, v in m.state().items():
+            if not (leaves[k].astype(np.int64) == v[:, None]).all():
+                raise AssertionError(f"stream_path {what}: {k} != the "
+                                     "plain model's")
+
+    def fire_check(leaves, steps):
+        m = model_run(lambda t: fire, steps)
+        final_check(leaves, m, "firehose")
+        return {"equal_to_plain_model": True,
+                "tail": int(m.tail[0]), "base": int(m.base[0])}
+
+    def consumer_check(leaves, steps, served, committed):
+        """Walk the dispatches' read outcomes in order: a lane's batch
+        registers at inner step 0 when none is pending (else it is shed
+        on arrival), and the served replies are the pending batch's."""
+        pending = np.full(N, -1, np.int64)
+        prev_shed = prev_stale = np.zeros(N, np.int64)
+        mismatch = 0
+        by_wm: dict = {}       # watermark -> [(lanes, queries, replies)]
+        stats = {"served_reads": 0, "served_batches": 0, "shed": 0,
+                 "stale_refused": 0, "stale_serves": 0}
+        for d, obs in enumerate(served):
+            arriving = d < len(served) - 1     # the last: settle, no reads
+            if arriving and d >= dispatches:
+                raise AssertionError("stream_path: more dispatches than "
+                                     "read blocks made")
+            shed = obs["read_shed_lanes"].astype(np.int64)
+            stale = obs["read_stale_lanes"].astype(np.int64)
+            arrive = pending < 0
+            done = obs["read_done"] > 0                 # [K, N]
+            hit = done.any(axis=0)
+            if arriving:
+                pending = np.where(arrive, d, pending)
+                stats["shed"] += int((~arrive).sum())
+                # the engine sheds a batch that finds its lane's slot busy
+                mismatch += int(((shed - prev_shed) != 16 * ~arrive).sum())
+            got = np.flatnonzero(hit)
+            if len(got):
+                k = np.argmax(done[:, got], axis=0)
+                wm = obs["read_watermark"][k, got].astype(np.int64)
+                rep = obs["read_replies"][k, got]
+                src = pending[got]
+                if (src < 0).any():
+                    raise AssertionError("stream_path: a read served with "
+                                         "no batch pending")
+                floor = np.array([committed[s][lane] if s in committed
+                                  else 0 for s, lane in zip(src, got)])
+                stats["stale_serves"] += int((wm < floor).sum())
+                for w in np.unique(wm):
+                    sel = wm == w
+                    by_wm.setdefault(int(w), []).append(
+                        (got[sel], queries[src[sel], got[sel]], rep[sel]))
+                stats["served_reads"] += 16 * len(got)
+                stats["served_batches"] += len(got)
+                pending[got] = -1
+            expired = stale > prev_stale
+            stats["stale_refused"] += int(expired.sum())
+            pending[expired] = -1
+            prev_shed, prev_stale = shed, stale
+        if stats["stale_serves"] or mismatch:
+            raise AssertionError(f"stream_path: stale serves or shed "
+                                 f"batches the walk did not expect: {stats}"
+                                 f", {mismatch} lanes")
+        if not by_wm:
+            raise AssertionError("stream_path: no read was served")
+
+        def checker(w):
+            def at(m):
+                for lanes_w, qs, rep in by_wm[w]:
+                    want = m.query(lanes_w, qs)
+                    if not (rep.astype(np.int64) == want).all():
+                        raise AssertionError(
+                            f"stream_path: a read served at watermark {w}"
+                            " != the plain model's")
+            return at
+        m = model_run(consumer_step, steps,
+                      at={w: checker(w) for w in by_wm})
+        final_check(leaves, m, "consumer")
+        return {"equal_to_plain_model": True,
+                "reads_equal_to_model_at_watermark": True,
+                "watermarks_checked": len(by_wm), **stats,
+                "tail": int(m.tail[0]), "base_lane0": int(m.base[0]),
+                "cursors_lane0": m.cursors[0].tolist()}
+
+    return [("a_firehose", lambda d: (n_full, fire_blk), None, fire_check),
+            ("b_consumer", lambda d: (n_full, consumer_blks[d]), reads,
+             consumer_check)]
+
+
+def phase_stream_path(LockstepEngine, DispatchAheadDriver, dev, seed: int,
+                      n_lanes: int = 10_000) -> dict:
+    """10,000 x 5 StreamMachine() through the driver at K = 8, the two
+    mixes of ``stream_mixes``; on the card every window takes the stream
+    decoder of slot_fold.cu."""
+    from ra_tpu_torch.models import StreamMachine
+    t0 = time.perf_counter()
+    out = {mix: run_machine_path(
+        "stream_path", mix, StreamMachine(), "slot_fold", blocks, check,
+        LockstepEngine, DispatchAheadDriver, n_lanes, dev, reads=reads)
+        for mix, blocks, reads, check in stream_mixes(n_lanes, seed)}
+    emit({"phase": "stream_path_done", "seconds": time.perf_counter() - t0})
+    return out
+
+
+def phase_wire_path(dev, n_lanes: int = 1024, waves: int = 12,
+                    traced: int = 3) -> dict:
+    """``run_wire_soak`` at ``bench.py --wire``'s defaults on the card:
+    100,000 loopback connections and 32 socket connections of 16 ops,
+    1,024 lanes x 3, 12 waves of 50,000 ops, rings of 32 records, durable
+    on open_engine with 2 WAL shards under build/, K = 4 and 16 commands
+    a step, a reconnect storm of a quarter of the connections mid-run,
+    DedupCounterMachine(452).  The soak's own oracle (every lane's
+    counter equal to the fleet's expected sums, every ranked op acked,
+    every ring drained) holds or it raises; the tail row is printed with
+    each wave's wall time, the device's idle share over the rung's last
+    ``traced`` waves (profiled through the soak's wave hook, so the
+    window holds no set-up; their waves' wall times beside the untraced
+    ones show the profiler's cost), and the dedup fold's device time at
+    the path's window."""
+    from ra_tpu_torch import devicewatch
+    from ra_tpu_torch.ops import commit_phase, fifo_fold, pallas_quorum, \
+        slot_fold
+    from ra_tpu_torch.step_profile import device_rows
+    from ra_tpu_torch.wire import DedupCounterMachine
+    from ra_tpu_torch.wire.soak import run_wire_soak
+    mods = {"evaluate_quorum": pallas_quorum, "commit_phase": commit_phase,
+            "slot_fold": slot_fold, "fifo_fold": fifo_fold}
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    data = WAL_ROOT / "wire"
+    shutil.rmtree(data, ignore_errors=True)
+    t0 = time.perf_counter()
+    prof = profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA])
+    starts: list = []           # each wave's start, and the drain's
+
+    def on_wave(w):
+        if w == waves - traced:
+            torch.cuda.synchronize()
+            prof.start()
+        if w == waves:
+            torch.cuda.synchronize()
+            prof.stop()
+        starts.append(time.perf_counter())
+    row = run_wire_soak(0, durable_dir=str(data), device=dev,
+                        conns=100_000, lanes=n_lanes, waves=waves,
+                        wave_ops=50_000, ring_records=32, socket_conns=32,
+                        socket_ops=16, superstep_k=4, cmds=16, wal_shards=2,
+                        on_wave=on_wave)
+    seconds = time.perf_counter() - t0
+    launches = {name: mod.LAUNCHES for name, mod in mods.items()}
+    shutil.rmtree(data, ignore_errors=True)
+    wave_s = np.diff(starts).tolist()
+    traced_s = starts[waves] - starts[waves - traced]
+    groups = device_rows(prof)
+    busy_s = sum(e.self_device_time_total for g in ("kernels", "copies")
+                 for e in groups[g]) / 1e6
+    if launches["commit_phase"] == 0 or launches["slot_fold"] or \
+            launches["fifo_fold"] or launches["evaluate_quorum"]:
+        raise AssertionError(f"wire_path: launches {launches}")
+    if row["dup_rows_absorbed"] <= 0 or row["storm_requeued"] <= 0:
+        raise AssertionError("wire_path: the storm made no duplicate to "
+                             "absorb")
+    # the dedup fold (torch ops, no kernel) at the path's window:
+    # [1,024, 3, 18] commands, 452 slots a lane
+    m = DedupCounterMachine(slots=4 * (100_032 // n_lanes) + 64)
+    rng = np.random.default_rng(0)
+    state = {"value": torch.zeros((n_lanes, 3), dtype=torch.int32,
+                                  device=dev),
+             "seq": torch.from_numpy(rng.integers(
+                 0, 50, (n_lanes, 3, m.slots)).astype(np.int32)).to(dev)}
+    cmd = torch.from_numpy(np.stack([
+        rng.integers(0, m.slots, (n_lanes, 18)),
+        rng.integers(1, 60, (n_lanes, 18)),
+        rng.integers(1, 8, (n_lanes, 18))], -1).astype(np.int32)).to(dev)
+    cmds = cmd[:, None].expand(n_lanes, 3, 18, 3)
+    mask = torch.ones((n_lanes, 3, 18), dtype=torch.bool, device=dev)
+    fold = lambda: m.jit_apply_batch(None, cmds, mask, state)  # noqa: E731
+    reduced = {} if waves == 12 else {"waves": [12, waves]}
+    out = {"phase": "wire_path", "seconds": seconds, "reduced": reduced,
+           "launches": launches,
+           "dedup_fold_ms_a_call": cuda_ms(fold, reps=50),
+           "dedup_fold_graph_ms": graph_ms(fold, reps=50),
+           "dedup_fold_shape": [n_lanes, 3, 18, m.slots],
+           "wave_s": wave_s, "traced_waves": [waves - traced, waves],
+           "traced_waves_s": traced_s,
+           "traced_waves_device_busy_s": busy_s,
+           "traced_waves_device_idle_share": 1.0 - busy_s / traced_s,
+           **{k: row[k] for k in (
+               "wire_cmds_per_s", "wire_shed_rate",
+               "wire_reconnect_recovery_s", "elapsed_s", "work_s",
+               "wire_conns", "wire_swept_rows", "conns", "sessions",
+               "lanes", "socket_conns", "ops", "dup_rows_absorbed",
+               "storm_requeued", "durable", "wal_shards",
+               "wire_shed_fairness")},
+           "device_plane": devicewatch.bench_tail_keys(row["ops"]),
+           "exactly_once_lane_sums": True, "ranked_ops_acked": True}
+    emit(out)
+    return {"host": launches}
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of ra_tpu_torch "
+                                 "on one NVIDIA GPU")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the stream path's values")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2274,6 +2795,12 @@ def main() -> int:
     phase_machine_parity(LockstepEngine, state_to_numpy, dev)
     fifo_launches = phase_fifo_path(LockstepEngine, DispatchAheadDriver, dev)
     kv_launches = phase_kv_path(LockstepEngine, DispatchAheadDriver, dev)
+    stream_launches = phase_stream_path(LockstepEngine, DispatchAheadDriver,
+                                        dev, args.seed)
+    try:
+        wire_launches = phase_wire_path(dev)
+    finally:
+        shutil.rmtree(WAL_ROOT, ignore_errors=True)
     # launches of each kernel on each path, each counted from 0 just
     # before its path; "launches" is the count on the kernel's own path
     # (the main path for the commit phase and the quorum, the fifo path's
@@ -2289,6 +2816,9 @@ def main() -> int:
                                    for mix, v in fifo_launches.items()}
         k["launches_kv_path"] = {mix: v["host"][name]
                                  for mix, v in kv_launches.items()}
+        k["launches_stream_path"] = {mix: v["host"][name]
+                                     for mix, v in stream_launches.items()}
+        k["launches_wire_path"] = wire_launches["host"][name]
         if name in folds:
             k["launches"] = folds[name]["host"][name]
             k["executions_profiled"] = folds[name]["profiled_executions"]

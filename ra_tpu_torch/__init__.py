@@ -4,7 +4,8 @@ A second package beside ``ra_tpu`` (the JAX reference, which it never
 imports): thousands of co-hosted Raft clusters advanced as one batched
 step on an NVIDIA H100, with the commit quorum in a hand-written Hopper
 kernel and K steps a dispatch replayed as one CUDA graph; in durable mode
-(``open_engine``) commits gate on fsync confirms from a sharded WAL.
+(``open_engine``) commits gate on fsync confirms from a sharded WAL; the
+ingress and wire planes carry client sessions over sockets into it.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.  Exports are lazy, so ``import ra_tpu_torch`` loads
 nothing but this file and starts no compiler.
@@ -27,6 +28,13 @@ _EXPORTS = {
     "JitKvMachine": "ra_tpu_torch.models.jit_kv",
     "RegisterMachine": "ra_tpu_torch.models.registers",
     "TtlKvMachine": "ra_tpu_torch.models.ttl_kv",
+    "StreamMachine": "ra_tpu_torch.models.stream",
+    "DedupCounterMachine": "ra_tpu_torch.wire.dedup",
+    "IngressPlane": "ra_tpu_torch.ingress",
+    "WireListener": "ra_tpu_torch.wire.server",
+    "WireClient": "ra_tpu_torch.wire.client",
+    "LoopbackFleet": "ra_tpu_torch.wire.client",
+    "run_wire_soak": "ra_tpu_torch.wire.soak",
     "JitMachine": "ra_tpu_torch.core.machine",
     "resolve_device": "ra_tpu_torch.device",
 }

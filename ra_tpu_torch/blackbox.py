@@ -72,6 +72,35 @@ EVENT_REGISTRY = {
     # -- supervision ---------------------------------------------------
     "sup.restart": "a supervisor restarted a dead component",
     "sup.giveup": "restart intensity exceeded; supervisor backing off",
+    # -- ingress plane (ingress/) --------------------------------------
+    "ingress.connect": "session (re)connected: epoch bump under a "
+                       "stable (tenant, lane, shard) placement",
+    "ingress.level": "backpressure ladder level transition "
+                     "(open/tight/fair)",
+    "ingress.shed": "coalescer ring overflow began shedding rows "
+                    "(transition into a shed episode, not per row)",
+    "read.shed": "ladder bias began shedding read waves at admission "
+                 "(any tightened level refuses reads before writes are "
+                 "delayed; transition, not per row)",
+    "read.stale": "the device refused pending reads rather than serve "
+                  "past lease/quorum cover (stale-refusal episode "
+                  "transition)",
+    # -- wire plane (wire/) ---------------------------------------------
+    "wire.conn": "connection lifecycle: accept/close/bulk-connect/"
+                 "reconnect-storm (loopback fleets emit one event, never "
+                 "one per connection)",
+    "wire.credit": "the credit-frame ladder level changed between "
+                   "sweeps (transition only, never per row)",
+    "wire.shed": "a sweep began answering shed verdicts (transition "
+                 "into a wire shed episode)",
+    "wire.error": "protocol error (bad hello/version/record) closed "
+                  "a connection",
+    "placement.rehome": "sessions re-bound to the new home: epoch "
+                        "bump, dedup slots claimed, ack watermarks "
+                        "re-seeded",
+    "placement.rehome_hint": "listener refused a frame routed on a "
+                             "stale placement revision with a typed "
+                             "REHOME hint (engine, generation, rev)",
     # -- recorder meta -------------------------------------------------
     "bb.dump": "post-mortem bundle written",
     "bb.recover": "recovery stamped a join-able recovery report",

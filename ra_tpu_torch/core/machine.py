@@ -58,6 +58,10 @@ class JitMachine:
     #: True when :meth:`jit_apply_batch` folds a committed window in one
     #: shot, order-equivalently to the sequential masked fold
     supports_batch_apply: bool = False
+    #: True where the fast fold and the in-order fold of a clean window
+    #: can differ: :meth:`window_fold_dispatch` then keeps the reference's
+    #: choice on a card too
+    fast_fold_on_card: bool = False
 
     def jit_init(self, n_lanes: int, device: torch.device) -> Any:
         """The initial state tree with a leading lane axis, on ``device``."""
@@ -92,9 +96,10 @@ class JitMachine:
         folds every window: where the fast fold is valid the two agree,
         and the kernel is the faster at the full-width windows (PERF.md).
         On the CPU the reference's cond: both folds run and the fast one
-        is kept where ``_fast_ok``."""
+        is kept where ``_fast_ok``; so too on a card for a machine whose
+        :attr:`fast_fold_on_card` is set, where the two folds can differ."""
         folded = self.in_order_fold(meta, commands, mask, state)
-        if mask.device.type != "cpu":
+        if mask.device.type != "cpu" and not self.fast_fold_on_card:
             return folded
         return cond_select(self._fast_ok(commands, mask),
                            self._batch_fast(commands, mask, state), folded)

@@ -747,6 +747,12 @@ class EngineDurability:
         if not ok:
             raise TimeoutError("WAL encode workers stalled")
 
+    def pending_steps(self) -> int:
+        """Dispatched but unconfirmed steps on the laggiest shard: the
+        durability half of the ingress plane's backlog (its queue depth
+        plus this is the node's uncommitted total)."""
+        return self.step_seq - min(sh.confirmed_step for sh in self._shards)
+
     def backpressure(self, timeout: float = 30.0) -> None:
         """Bound the unconfirmed window: wait for WAL confirms when more
         than ``max_pending`` steps are in flight on the laggiest shard

@@ -101,7 +101,7 @@ class GraphCache:
             self._graphs.move_to_end(key)
             return g
         g = CapturedCall(fn, args, device, launch_counts)
-        devicewatch.record_capture(key in self._seen)
+        devicewatch.record_capture(key in self._seen, g.capture_ms)
         self._seen.add(key)
         self._graphs[key] = g
         while len(self._graphs) > MAX_GRAPHS:

@@ -723,6 +723,7 @@ class LockstepEngine:
         self.phases = PhaseStats()
         self._superstep_k_last = 0
         self._driver = None     # the attached DispatchAheadDriver
+        self._ingress = None    # the attached IngressPlane
         self._telemetry = None  # the attached TelemetrySampler
         # the attached durability bridge (durable mode), or None
         self._dur = None  # ra-type: ra_tpu_torch.engine.durable.EngineDurability
@@ -1188,6 +1189,12 @@ class LockstepEngine:
 
     # -- readback ----------------------------------------------------------
 
+    def mesh_shape(self) -> str:
+        """The device-mesh stamp, ``"<members>x<lanes>"`` for a sharded
+        engine in the reference; the port runs on one device, so ``""``,
+        the reference's value for an unsharded engine."""
+        return ""
+
     def committed_total(self) -> int:
         # per-lane counters are int32; the node-wide sum can exceed 2^31
         return int(self.state.total_committed.cpu().numpy()
@@ -1233,6 +1240,7 @@ class LockstepEngine:
         out["pipeline"] = {
             "superstep_k": self._superstep_k_last,
             "cmds_per_step": self.max_step_cmds,
+            "mesh_shape": self.mesh_shape(),
             "dispatch_ahead": drv.max_in_flight if drv is not None else 0,
             "dispatches_in_flight": drv.in_flight() if drv is not None
             else 0,
@@ -1258,4 +1266,7 @@ class LockstepEngine:
         if self._dur is not None:
             # the durability plane: ENGINE_WAL_FIELDS and per-shard stats
             out["wal"] = self._dur.wal_overview()
+        if self._ingress is not None:
+            # the session tier's flow gauges beside the pipeline it feeds
+            out["ingress"] = self._ingress.gauges()
         return out

@@ -1,0 +1,189 @@
+"""Graduated backpressure: per-session credit, per-tenant admission,
+and the SLO-driven shed/defer/reject ladder.  A copy of
+``ra_tpu/ingress/backpressure.py`` (host numpy).
+
+FifoClient speaks a three-step protocol per session — ``ok`` → ``slow``
+(soft limit) → ``StopSending`` (hard limit), mirrored from
+ra_fifo_client.erl — but that only protects one mailbox.  This module
+generalizes the ladder to ALL machines and a million sessions at once:
+
+* **per-session credit** — each session holds at most ``hard_credit``
+  commands in flight (staged + dispatched, un-committed); past
+  ``soft_credit`` the row is admitted but stamped ``SLOW`` so the
+  client eases off.  Credit is released at BLOCK granularity when the
+  engine's committed watermark covers the block (no per-command host
+  work — one vectorized ``np.add.at`` per retired block).
+* **per-tenant admission + fairness counters** — tenants' in-flight
+  totals are tracked; once the ladder escalates, tenants over their
+  quota get ``DEFER`` first, so one noisy tenant cannot starve the
+  rest (``tenant_used`` is the fairness evidence, exported via
+  INGRESS_FIELDS).
+* **the graduated ladder** — driven by SloEngine verdicts on the
+  commit-latency objective: level 0 (open) admits to the configured
+  credits; a ``breach`` verdict tightens to level 1 (credits halved —
+  tighten BEFORE queues grow, the whole point of latency-driven
+  admission); an ``alert`` escalates to level 2 (tenant fairness
+  enforced: over-quota tenants deferred).  Level 3 is the coalescer's
+  own overflow shed (bounded rings drop, they never grow).  Recovery
+  de-escalates one level per clean window (hysteresis: no flapping).
+
+Every level transition emits a registered ``ingress.level`` flight-
+recorder event (RA06); per-row outcomes are counters, never events —
+the emit path must not ride a million-row batch.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..blackbox import record
+from .coalesce import batch_rank
+
+#: per-row admission statuses (np.int8), shared across the ingress plane
+OK, SLOW, DEFER, REJECT, DUP, SHED = 0, 1, 2, 3, 4, 5
+
+STATUS_NAMES = ("ok", "slow", "defer", "reject", "dup", "shed")
+
+#: ladder levels (index = level)
+LEVEL_NAMES = ("open", "tight", "fair", "shed")
+
+
+class CreditLadder:
+    """Vectorized credit + admission over a SessionDirectory's handle
+    space.  The ladder level is set by :meth:`on_slo` from SloEngine
+    verdicts; :meth:`admit` stamps per-row statuses and takes credit;
+    :meth:`release` returns it when blocks commit."""
+
+    def __init__(self, directory, *, soft_credit: int = 64,
+                 hard_credit: int = 256,
+                 tenant_quota: int = 65536) -> None:
+        if soft_credit > hard_credit:
+            raise ValueError("soft_credit must be <= hard_credit")
+        self.directory = directory
+        self.soft_credit = int(soft_credit)
+        self.hard_credit = int(hard_credit)
+        #: per-tenant in-flight cap enforced at level >= 2
+        self.tenant_quota = int(tenant_quota)
+        self.level = 0
+        self._clean_windows = 0
+        self.used = np.zeros(directory.capacity, np.int64)
+        self.tenant_used = np.zeros(16, np.int64)
+
+    def _ensure(self) -> None:
+        cap = self.directory.capacity
+        if len(self.used) < cap:
+            grown = np.zeros(cap, np.int64)
+            grown[:len(self.used)] = self.used
+            self.used = grown
+        nt = self.directory.n_tenants
+        if len(self.tenant_used) < nt:
+            grown = np.zeros(max(nt, 2 * len(self.tenant_used)), np.int64)
+            grown[:len(self.tenant_used)] = self.tenant_used
+            self.tenant_used = grown
+
+    # -- effective limits by ladder level ----------------------------------
+
+    def effective_limits(self) -> tuple:
+        """(soft, hard) scaled by the ladder level: each escalation
+        halves both — tighten credits before queues grow."""
+        shift = min(self.level, 2)
+        return (max(1, self.soft_credit >> shift),
+                max(1, self.hard_credit >> shift))
+
+    # -- admission (vectorized; one sweep per batch) -----------------------
+
+    def admit(self, handles: np.ndarray) -> np.ndarray:
+        """Per-row status (OK/SLOW/DEFER/REJECT) for a batch of fresh
+        rows; takes credit for the admitted ones.  Within-batch
+        multiplicity counts: a session pushing 300 rows in one wave
+        hits its hard credit inside the wave, not a wave late."""
+        self._ensure()
+        handles = np.asarray(handles, np.int64)
+        n = len(handles)
+        status = np.zeros(n, np.int8)
+        if n == 0:
+            return status
+        soft, hard = self.effective_limits()
+        used_here = self.used[handles] + batch_rank(handles)
+        status[used_here >= soft] = SLOW
+        if self.level >= 2:
+            t = self.directory.tenant[handles]
+            t_here = self.tenant_used[t] + batch_rank(t)
+            over = t_here >= self.tenant_quota
+            status = np.where(over & (status <= SLOW),
+                              np.int8(DEFER), status)
+        status[used_here >= hard] = REJECT
+        adm = status <= SLOW
+        np.add.at(self.used, handles[adm], 1)
+        np.add.at(self.tenant_used, self.directory.tenant[handles[adm]], 1)
+        return status
+
+    def release(self, handles: np.ndarray) -> int:
+        """Return credit for committed (or shed) rows — one vectorized
+        scatter per retired block."""
+        handles = np.asarray(handles, np.int64)
+        if len(handles) == 0:
+            return 0
+        self._ensure()
+        tenants = self.directory.tenant[handles]
+        np.add.at(self.used, handles, -1)
+        np.add.at(self.tenant_used, tenants, -1)
+        # double-release cannot happen by construction (each placed row
+        # is released exactly once); clamp anyway so an accounting bug
+        # degrades to loose credit, not a permanently wedged session.
+        # Clamp only the TOUCHED rows — a full-array pass here would
+        # sweep the whole million-session directory per retired block
+        np.maximum.at(self.used, handles, 0)
+        np.maximum.at(self.tenant_used, tenants, 0)
+        return int(len(handles))
+
+    # -- the SLO-driven ladder ---------------------------------------------
+
+    def on_slo(self, verdicts: dict) -> int:
+        """Escalate/decay from an SloEngine result (the ``evaluate()``
+        dict or its ``objectives`` sub-dict): extracts the commit-
+        latency verdict and delegates to :meth:`on_verdict`."""
+        objs = verdicts.get("objectives", verdicts) or {}
+        return self.on_verdict(
+            (objs.get("commit_p99_ms") or {}).get("verdict"))
+
+    def on_verdict(self, v: Optional[str]) -> int:
+        """Escalate/decay the ladder from one commit-latency verdict
+        string (what ``SloEngine.verdict("commit_p99_ms")`` returns):
+        breach → level 1, alert → level 2; ``ok`` decays one level per
+        TWO clean windows (hysteresis); ``no_data``/None holds.
+        Returns the (possibly new) level; transitions are recorded."""
+        if v == "alert":
+            target, self._clean_windows = 2, 0
+        elif v == "breach":
+            target, self._clean_windows = max(self.level, 1), 0
+        elif v == "ok":
+            self._clean_windows += 1
+            target = self.level - 1 if self._clean_windows >= 2 else \
+                self.level
+            if target != self.level:
+                self._clean_windows = 0
+        else:  # no_data / objective absent: hold
+            target = self.level
+        target = int(np.clip(target, 0, 2))
+        if target != self.level:
+            record("ingress.level", old=LEVEL_NAMES[self.level],
+                   new=LEVEL_NAMES[target], verdict=v or "none")
+            self.level = target
+        return self.level
+
+    def overview(self) -> dict:
+        self._ensure()
+        soft, hard = self.effective_limits()
+        nt = self.directory.n_tenants
+        return {
+            "level": self.level,
+            "level_name": LEVEL_NAMES[self.level],
+            "soft_credit": soft,
+            "hard_credit": hard,
+            "tenant_quota": self.tenant_quota,
+            "credit_in_use": int(self.used.sum()),
+            "tenant_used_max": int(self.tenant_used[:nt].max())
+            if nt else 0,
+        }

@@ -1,0 +1,182 @@
+"""Aggregation window: per-session submissions → dense superstep blocks.
+A copy of ``ra_tpu/ingress/coalesce.py`` (host numpy, no device).
+
+The lane engine eats ``[K, lanes, cmds_per_step, C]`` superstep blocks
+(one fused device dispatch); clients produce ragged per-session
+dribbles.  This module is the node-wide batching tier between them —
+the role ra_log_wal plays for the reference's thousands of co-hosted
+clusters (PAPER.md §0), and the canonical batching-before-consensus
+throughput lever (arxiv 1605.05619) — implemented as a per-lane staging
+ring in host numpy:
+
+* :meth:`CoalesceWindow.offer` scatters an admitted batch into per-lane
+  ring positions — within-batch per-lane ranks come from one stable
+  argsort, the scatter is one fancy-indexed store.  Rows that would
+  overflow a lane's ring are NOT placed (returned to the caller's shed
+  ladder: bounded queues shed, they never grow).
+* :meth:`CoalesceWindow.pop_block` gathers the front ``K*cmds_per_step``
+  window of every lane into the dense block shape in three vectorized
+  ops (gather, reshape, transpose) and advances the ring heads.
+
+Both are the **block-build hot path**: they run for every ingress wave
+at up-to-millions-of-rows rates, so lint rule RA08 statically forbids
+per-session Python loops and dict allocation inside them (an
+``# ra08-ok: <why>`` line comment allowlists a deliberate exception).
+Why host-side at all (docs/INTERNALS.md §12): ragged fan-in is
+data-dependent control flow — exactly what a captured device program
+cannot hold — while a
+dense block is what the device consumes without host syncs; the
+boundary between "ragged world" and "dense world" therefore sits in
+host numpy, once, per window.
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+
+
+def batch_rank(keys: np.ndarray) -> np.ndarray:
+    """Within-batch occurrence rank per key (vectorized): for
+    ``[7, 3, 7, 7, 3]`` returns ``[0, 0, 1, 2, 1]``.  One stable
+    argsort + a run-length subtraction — the primitive both the
+    coalescer scatter and the credit ladder's multiplicity accounting
+    are built on (no per-session loop)."""
+    keys = np.asarray(keys)
+    n = len(keys)
+    if n == 0:
+        return np.zeros(0, np.int64)
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    new_run = np.empty(n, bool)
+    new_run[0] = True
+    new_run[1:] = sk[1:] != sk[:-1]
+    run_starts = np.flatnonzero(new_run)
+    run_ids = np.cumsum(new_run) - 1
+    rank_sorted = np.arange(n, dtype=np.int64) - run_starts[run_ids]
+    rank = np.empty(n, np.int64)
+    rank[order] = rank_sorted
+    return rank
+
+
+class CoalesceWindow:
+    """Per-lane staging rings + the dense block builder.
+
+    ``capacity`` bounds each lane's queued-but-undispatched rows (the
+    bounded-queue half of the backpressure story); a block drains up to
+    ``superstep_k * cmds_per_step`` rows per lane.  ``ready`` triggers
+    on fill (``fill_frac`` of one full block node-wide) or cadence
+    (``window_s`` since the last pop) — the batching-window shape of
+    the reference WAL's gen_batch_server."""
+
+    def __init__(self, n_lanes: int, cmds_per_step: int,
+                 payload_width: int, *, superstep_k: int = 8,
+                 capacity: Optional[int] = None, window_s: float = 0.002,
+                 fill_frac: float = 0.5,
+                 payload_dtype=np.int32,
+                 track_seqnos: bool = False) -> None:
+        self.n_lanes = int(n_lanes)
+        self.cmds_per_step = int(cmds_per_step)
+        self.payload_width = int(payload_width)
+        self.superstep_k = int(superstep_k)
+        width = self.superstep_k * self.cmds_per_step
+        self.capacity = int(capacity) if capacity else 2 * width
+        if self.capacity < width:
+            raise ValueError(
+                f"capacity {self.capacity} < one block window {width}")
+        self.window_s = float(window_s)
+        #: node-wide fill (rows) that triggers an eager pop: a fraction
+        #: of one FULL block across every lane
+        self.fill_trigger = max(1, int(fill_frac * width * self.n_lanes))
+        self.buf = np.zeros((self.n_lanes, self.capacity,
+                             self.payload_width), payload_dtype)
+        #: session handle per staged row (credit release + audit joins)
+        self.hbuf = np.full((self.n_lanes, self.capacity), -1, np.int64)
+        #: optional per-row seqno ring (the READ lane's reply
+        #: correlation ids) — opt-in: the write lane's seqno
+        #: bookkeeping lives in the dedup directory, and an
+        #: unconditional int64 ring would double this class's memory
+        self.sbuf = np.zeros((self.n_lanes, self.capacity), np.int64) \
+            if track_seqnos else None
+        #: seqno matrix [N, K*Kc] of the LAST pop_block (None when
+        #: seqno tracking is off) — read immediately after the pop
+        self.last_pop_seqnos: Optional[np.ndarray] = None
+        self.head = np.zeros(self.n_lanes, np.int64)
+        self.fill = np.zeros(self.n_lanes, np.int64)
+        self._staged_rows = 0
+        self._last_pop = time.monotonic()
+
+    # -- hot path (rule RA08: no per-session loops, no dict allocation) ----
+
+    def offer(self, lanes: np.ndarray, payloads: np.ndarray,
+              handles: np.ndarray, seqnos=None) -> np.ndarray:
+        """Scatter an admitted batch into the per-lane rings.  Returns
+        the PLACED mask; unplaced rows overflowed their lane's bounded
+        ring and must be shed/deferred by the caller (their seqnos are
+        not marked, so a later resend is still fresh)."""
+        lanes = np.asarray(lanes, np.int64)
+        rank = batch_rank(lanes)
+        rel = self.fill[lanes] + rank
+        placed = rel < self.capacity
+        lp = lanes[placed]
+        slot = (self.head[lp] + rel[placed]) % self.capacity
+        self.buf[lp, slot] = payloads[placed]
+        self.hbuf[lp, slot] = np.asarray(handles, np.int64)[placed]
+        if self.sbuf is not None and seqnos is not None:
+            self.sbuf[lp, slot] = np.asarray(seqnos, np.int64)[placed]
+        np.add.at(self.fill, lp, 1)
+        self._staged_rows += int(len(lp))
+        return placed
+
+    def pop_block(self):
+        """Drain up to one superstep block: returns ``(n_new, payloads,
+        handles, take)`` with ``n_new`` int32[K, N], ``payloads``
+        [K, N, cmds_per_step, C] (dense; rows past ``n_new`` are stale
+        ring bytes the engine never reads), ``handles`` int64[N, K*Kc]
+        (valid through ``take[lane]`` rows per lane — the credit-release
+        join), ``take`` int64[N]."""
+        k, kc = self.superstep_k, self.cmds_per_step
+        width = k * kc
+        take = np.minimum(self.fill, width)
+        idx = (self.head[:, None] + np.arange(width)[None, :]) \
+            % self.capacity
+        payloads = np.take_along_axis(self.buf, idx[..., None], axis=1)
+        handles = np.take_along_axis(self.hbuf, idx, axis=1)
+        if self.sbuf is not None:
+            self.last_pop_seqnos = np.take_along_axis(self.sbuf, idx, axis=1)
+        n_new = np.clip(take[None, :] - (np.arange(k) * kc)[:, None],
+                        0, kc).astype(np.int32)
+        payloads = payloads.reshape(self.n_lanes, k, kc,
+                                    self.payload_width)
+        payloads = payloads.transpose(1, 0, 2, 3)
+        self.head = (self.head + take) % self.capacity
+        self.fill = self.fill - take
+        self._staged_rows -= int(take.sum())
+        self._last_pop = time.monotonic()
+        return n_new, payloads, handles, take
+
+    # -- control plane -----------------------------------------------------
+
+    def ready(self, now: Optional[float] = None) -> bool:
+        """Fill trigger OR cadence trigger (with anything staged)."""
+        if self._staged_rows <= 0:
+            return False
+        if self._staged_rows >= self.fill_trigger:
+            return True
+        now = time.monotonic() if now is None else now
+        return (now - self._last_pop) >= self.window_s
+
+    def queue_rows(self) -> int:
+        return int(self._staged_rows)
+
+    def overview(self) -> dict:
+        return {
+            "queue_rows": int(self._staged_rows),
+            "capacity_rows": self.capacity * self.n_lanes,
+            "fill_max": int(self.fill.max()) if self.n_lanes else 0,
+            "superstep_k": self.superstep_k,
+            "cmds_per_step": self.cmds_per_step,
+            "fill_trigger": self.fill_trigger,
+            "window_s": self.window_s,
+        }

@@ -2,10 +2,11 @@
 
 Own copies of ``ra_tpu.metrics.ENGINE_PIPELINE_FIELDS``,
 ``TELEMETRY_FIELDS``, ``TELEMETRY_SUMMARY_FIELDS``, ``PHASE_FIELDS``,
-``WAL_FIELDS``, ``ENGINE_WAL_FIELDS`` and ``DISK_FAULT_FIELDS`` (the
-port imports nothing of ``ra_tpu``); the equality of every tuple with
-the reference is pinned by ``tests/test_torch_engine.py`` and
-``tests/test_torch_wal.py``.
+``WAL_FIELDS``, ``ENGINE_WAL_FIELDS``, ``DISK_FAULT_FIELDS``,
+``INGRESS_FIELDS``, ``WIRE_FIELDS`` and ``READ_FIELDS`` (the port
+imports nothing of ``ra_tpu``); the equality of every tuple with the
+reference is pinned by ``tests/test_torch_engine.py``,
+``tests/test_torch_wal.py`` and ``tests/test_torch_ingress.py``.
 """
 
 #: host-side dispatch-pipeline counters of ``LockstepEngine``:
@@ -96,6 +97,58 @@ DISK_FAULT_FIELDS = (
     "swallowed_oserrors", "fsync_retries_after_failure",
 )
 
+#: ingress-plane counters (``ingress/``), one dict an ``IngressPlane``:
+#: ``submitted`` every row offered to ``submit``; ``accepted`` the rows
+#: placed into the coalescer (these alone advance the at-most-once seqno
+#: watermark); ``dup_dropped`` resends of an already placed (session,
+#: seqno); ``slow_signals`` admissions past the soft credit;
+#: ``deferred`` rows parked by tenant-fairness admission at ladder level
+#: >= 2; ``rejected`` rows refused at the hard credit; ``shed_rows`` rows
+#: dropped by coalescer ring overflow (bounded queues shed, they never
+#: grow); ``blocks_built`` superstep blocks dispatched and ``block_rows``
+#: the rows they carried; ``reconnects`` session epoch bumps;
+#: ``credits_released`` per-row credit returns at block-commit
+#: granularity.
+INGRESS_FIELDS = (
+    "submitted", "accepted", "dup_dropped", "slow_signals", "deferred",
+    "rejected", "shed_rows", "blocks_built", "block_rows", "reconnects",
+    "credits_released",
+)
+
+#: wire-plane counters (``wire/``), one dict a ``WireListener``.
+#: Connections: ``conns_opened``/``conns_closed`` slots bound and
+#: released (socket accepts and loopback bulk connects),
+#: ``hello_reconnects`` re-binds of a known connection key.  Data:
+#: ``bytes_recv`` raw bytes landed in the rings, ``sweeps`` sweep passes,
+#: ``swept_rows`` DATA records decoded and submitted, ``protocol_errors``
+#: malformed frames or records (each closes its connection).  Feedback:
+#: ``credit_rows``/``ack_rows`` verdict and watermark records sent back;
+#: ``credit_ok`` .. ``credit_shed`` the verdicts by status.  Reads:
+#: ``read_rows`` READ records decoded and submitted, ``read_reply_rows``
+#: READ_REPLY records sent back with their certified watermark.
+WIRE_FIELDS = (
+    "conns_opened", "conns_closed", "hello_reconnects", "bytes_recv",
+    "sweeps", "swept_rows", "protocol_errors", "credit_rows",
+    "ack_rows", "credit_ok", "credit_slow", "credit_defer",
+    "credit_reject", "credit_dup", "credit_shed",
+    "read_rows", "read_reply_rows",
+)
+
+#: the ingress plane's read-lane counters, one dict an ``IngressPlane``:
+#: ``submitted`` read rows offered, ``accepted`` those placed into the
+#: read coalescer, ``shed`` rows shed by overload (any ladder level above
+#: green sheds reads before writes are delayed), ``rejected`` rows
+#: refused by ring overflow; ``blocks_built``/``block_rows`` read blocks
+#: dispatched and their rows; ``served`` reads answered at a certified
+#: watermark, ``stale_refused`` reads the device refused rather than
+#: serve stale, ``lease_served`` the served-under-lease subset,
+#: ``replies_sent`` READ_REPLY rows sent back to clients.
+READ_FIELDS = (
+    "submitted", "accepted", "shed", "rejected", "blocks_built",
+    "block_rows", "served", "stale_refused", "lease_served",
+    "replies_sent",
+)
+
 #: every counter-field group of the port, by the reference's group names
 FIELD_REGISTRY = {
     "wal": WAL_FIELDS,
@@ -105,4 +158,7 @@ FIELD_REGISTRY = {
     "telemetry_summary": TELEMETRY_SUMMARY_FIELDS,
     "phase": PHASE_FIELDS,
     "disk_faults": DISK_FAULT_FIELDS,
+    "ingress": INGRESS_FIELDS,
+    "read": READ_FIELDS,
+    "wire": WIRE_FIELDS,
 }

@@ -26,11 +26,13 @@ On the CPU, as in the reference, a window of only
 noop/enqueue/dequeue-settled commands folds in one vectorised pass
 (:meth:`_batch_fast`) and any other window takes the in-order fold.  On a
 card every window takes the in-order fold, the ``ops/csrc/fifo_fold.cu``
-kernel.
+kernel, when the capacity is a power of two.  With any other capacity the
+two folds place a clean window's entries differently where a lane's head
+comes within about the capacity of the int32 edge (as the reference's
+do), so there the card keeps the reference's choice: both folds run and
+the fast one is kept where the window is clean.
 """
 from __future__ import annotations
-
-import warnings
 
 import torch
 
@@ -87,6 +89,9 @@ class JitFifoMachine(JitMachine):
         if overflow not in ("reject", "drop_head"):
             raise ValueError(f"unknown overflow policy {overflow!r}")
         self.capacity = capacity
+        #: a capacity that is no power of two: the card selects between
+        #: the two folds as the CPU does
+        self.fast_fold_on_card = bool(capacity & (capacity - 1))
         self.checkout_slots = checkout_slots
         self.consumer_slots = consumer_slots
         self.overflow = overflow
@@ -94,12 +99,7 @@ class JitFifoMachine(JitMachine):
     def check_device(self, device: torch.device) -> None:
         """On a CUDA device: refuse the tables the fold kernel cannot fold
         (more than 32 checkout slots; a capacity longer than the ring
-        shared memory holds that is not a power of two), and warn that
-        with a capacity that is not a power of two a lane whose head comes
-        within about the capacity of the int32 edge can fold a clean
-        window otherwise than on the CPU: there the fast fold the CPU
-        takes and the in-order fold the kernel runs place entries
-        differently, as they do in the reference."""
+        shared memory holds that is not a power of two)."""
         if device.type != "cuda":
             return
         Q, K = self.capacity, self.checkout_slots
@@ -109,14 +109,6 @@ class JitFifoMachine(JitMachine):
                 f"run on the card: its fold kernel takes up to "
                 f"{MAX_CHECKOUT} checkout slots and a capacity up to "
                 f"{MAX_SHARED_RING} or a power of two")
-        if Q & (Q - 1):
-            warnings.warn(
-                f"JitFifoMachine(capacity={Q}) on the card: with a capacity "
-                f"that is not a power of two, a lane whose head comes "
-                f"within about {Q} tickets of the int32 edge can fold a "
-                f"window of enqueues and settled dequeues otherwise than on "
-                f"the CPU",
-                RuntimeWarning, stacklevel=3)
 
     def jit_init(self, n_lanes: int, device: torch.device):
         N, Q, K, C = (n_lanes, self.capacity, self.checkout_slots,

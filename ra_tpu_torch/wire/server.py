@@ -1,0 +1,1235 @@
+"""The wire listener: real sockets into the ingress coalescer with
+zero per-command Python work.  A copy of ``ra_tpu/wire/server.py``
+(host numpy and sockets) over the port's ingress plane; it reads the
+engine's machine state on the host only where a listener is built or a
+fleet re-homed, never on the sweep or ack path.
+
+Three tiers, mirroring the RA08 discipline one layer further out:
+
+* **reader** — a selector loop (epoll under the hood) whose only
+  per-event work is ``recv_into`` + a wrap-aware copy into the
+  connection's preallocated ring slot.  It never looks INSIDE the
+  bytes: per-connection work per readable socket, zero per-command
+  work (a 64KB recv may carry thousands of commands for the cost of
+  one Python call).  A connection whose ring is full is paused
+  (unregistered) — kernel socket buffers fill and the CLIENT blocks:
+  TCP itself becomes the outermost backpressure tier, below the
+  credit ladder.
+* **sweep** — :meth:`WireListener.sweep` drains every connection's
+  buffered records in one vectorized pass (gather → ``frombuffer``
+  view → column slices) into the ``SessionDirectory.submit``-shaped
+  ``(handles, seqnos, payloads)`` batch the ingress plane eats, then
+  serializes the per-row CreditLadder verdicts back as per-connection
+  CREDIT frames.  Lint rule RA09 statically forbids per-frame Python
+  loops / dict allocation in this path and its same-module closure
+  (``# ra09-ok`` allowlists the per-CONNECTION socket writes — one
+  syscall per connection, never per command).
+* **acks** — the plane's block-commit hook
+  (:meth:`IngressPlane.on_block_committed`) advances per-session
+  cumulative committed-row watermarks off the driver's EXISTING async
+  readbacks and fans them out as ACK frames; the at-least-once client
+  retires its in-flight window against them (docs/INGRESS.md).
+
+Connections come in two transports sharing every byte of the
+ring/sweep path: real TCP sockets (``port=``) and in-process loopback
+slots (:meth:`loopback_connect`) used by the C100k→C1M rungs of the
+connection ladder, where two kernel fds per connection would exceed
+any rlimit long before the data plane saturates — the loopback fleet
+writes the SAME fixed-stride DATA records into the SAME rings and
+reads the SAME credit/ack record streams, vectorized end to end.
+"""
+from __future__ import annotations
+
+import selectors
+import socket
+import struct
+import threading
+from typing import Optional
+
+import numpy as np
+
+from ..blackbox import record
+from ..metrics import WIRE_FIELDS
+from .framing import (E_PAYLOAD_WIDTH, E_VERSION, SHED, T_DATA, T_READ,
+                      T_READ_REPLY, WIRE_VERSION, ack_dtype,
+                      credit_dtype, data_stride, decode_hello,
+                      encode_error, encode_hello_ack, encode_rehome,
+                      read_reply_dtype)
+
+_LEN = struct.Struct("<I")
+
+#: connection slot states
+_S_FREE, _S_HELLO, _S_DATA = 0, 1, 2
+
+
+def _ragged_arange(counts: np.ndarray) -> np.ndarray:
+    """[0..c0) ++ [0..c1) ++ ... as one vectorized array."""
+    total = int(counts.sum())
+    starts = np.cumsum(counts) - counts
+    return np.arange(total) - np.repeat(starts, counts)
+
+
+def _sendall_nb(sock, data: bytes, deadline_s: float = 0.25) -> bool:
+    """sendall onto a nonblocking socket with a bounded wait: a client
+    slow to drain its credit stream gets ``deadline_s`` of grace, then
+    the connection is declared dead (False)."""
+    import time as _t
+    view = memoryview(data)
+    end = _t.monotonic() + deadline_s
+    while view:  # ra09-ok: per-CONNECTION bounded send retry, not per command
+        try:
+            sent = sock.send(view)
+        except (BlockingIOError, InterruptedError):
+            sent = 0
+        except OSError:
+            return False
+        view = view[sent:]
+        if view:
+            if _t.monotonic() > end:
+                return False
+            _t.sleep(0.001)
+    return True
+
+
+def dedup_watermarks(eng) -> Optional[np.ndarray]:
+    """The dedup machine's per-(lane, member, slot) op watermarks as a
+    host array, or None for a machine without them: a synchronous copy of
+    the engine's state, made only where a listener is built or a fleet
+    re-homed."""
+    mac = getattr(eng.state, "mac", None)
+    if not (isinstance(mac, dict) and "seq" in mac):
+        return None
+    return mac["seq"].cpu().numpy()
+
+
+class WireListener:
+    """One listener per ingress plane: owns the connection pool, the
+    reader thread (when a TCP port is bound) and the sweep path."""
+
+    def __init__(self, plane, *, host: str = "127.0.0.1",
+                 port: Optional[int] = 0, max_conns: int = 1024,
+                 ring_bytes: int = 4096,
+                 sweep_rows: int = 1 << 20) -> None:
+        self.plane = plane
+        eng = plane.engine
+        self.payload_width = int(eng.payload_width)
+        self.stride = data_stride(self.payload_width)
+        if ring_bytes < 4 * self.stride:
+            raise ValueError(
+                f"ring_bytes {ring_bytes} < 4 records ({4 * self.stride})")
+        self.max_conns = int(max_conns)
+        self.ring_bytes = int(ring_bytes)
+        #: per-sweep row budget (bounds the gather transient)
+        self.sweep_rows = int(sweep_rows)
+        m = self.max_conns
+        self.rbuf = np.zeros((m, self.ring_bytes), np.uint8)
+        self.rhead = np.zeros(m, np.int64)
+        self.rfill = np.zeros(m, np.int64)
+        self.cstate = np.zeros(m, np.int8)
+        self.hbase = np.zeros(m, np.int64)       # first session handle
+        self.nsess = np.zeros(m, np.int64)       # sessions on this conn
+        self._free: list = list(range(m - 1, -1, -1))
+        self._lock = threading.Lock()
+        self._socks: dict[int, socket.socket] = {}   # slot -> socket
+        self._hello_buf: dict[int, bytearray] = {}
+        self._slot_key: dict[int, str] = {}          # reverse of _keys
+        #: recv'd bytes that overflowed a ring: already consumed from
+        #: the kernel, so they MUST be replayed into the ring at
+        #: resume — dropping them would silently lose commands
+        self._overflow: dict[int, bytes] = {}
+        self._keys: dict[str, int] = {}              # conn key -> slot
+        self._paused: set = set()
+        #: per-session cumulative committed placed rows / last acked
+        #: watermark sent (handle-indexed, grown with the directory)
+        self._committed = np.zeros(plane.directory.capacity, np.int64)
+        self._acked_sent = np.zeros(plane.directory.capacity, np.int64)
+        #: machine-level dedup identity: per-session per-LANE slot,
+        #: assigned at first bind, handed to the client in HELLO_ACK
+        #: (the DedupCounterMachine contract, wire/dedup.py)
+        self._slot = np.full(plane.directory.capacity, -1, np.int32)
+        self._lane_next = self._recovered_lane_next(eng)
+        #: loopback credit/ack outboxes: (records, per-conn row counts,
+        #: conn ids) collected by the fleet after each sweep/commit
+        self._lb_credit: list = []
+        self._lb_ack: list = []
+        #: loopback rehome-hint outbox: (slot, engine, generation, rev)
+        #: tuples drained via collect_rehome_hints() — the in-process
+        #: twin of the TCP T_REHOME frame
+        self._lb_rehome: list = []
+        #: loopback READ_REPLY outbox: (conn ids, per-conn
+        #: row counts, records) drained via collect_read_replies() —
+        #: the in-process twin of the TCP T_READ_REPLY frame
+        self._lb_read: list = []
+        #: serving-path placement view: a revision-monotone
+        #: PlacementCache + the engine ids served HERE; None = every
+        #: lane is local (the single-host default)
+        self._placement = None
+        self._local_engines: set = set()
+        self._placement_rids = None
+        self._placement_rev = -2      # forces a mask build on bind
+        self._lane_local = None
+        self._lane_home = None
+        self._owner_names: list = []
+        self._owner_gens: list = []
+        self.rehome_hints = 0         # PLACEMENT_FIELDS counter
+        self._lb_slots: set = set()
+        self._lb_key: dict[int, str] = {}
+        #: loopback membership as a flat mask: the sweep path fans
+        #: credit out by transport without any per-connection Python
+        self._is_lb = np.zeros(m, bool)
+        self.counters = {f: 0 for f in WIRE_FIELDS}
+        self._last_credit_level = 0
+        self._shedding = False
+        # conn lookup for ack fan-out: sorted handle-base intervals
+        self._base_dirty = True
+        self._base_sorted = np.zeros(0, np.int64)
+        self._base_slot = np.zeros(0, np.int64)
+        plane.on_block_committed = self._on_block_committed
+        # the read plane: READ records ride the DATA stride,
+        # so the encoded query must fit the negotiated payload columns
+        self._query_width = int(getattr(eng, "query_width", 1))
+        self._reply_width = int(getattr(eng, "query_reply_width", 1))
+        self._reads_enabled = bool(getattr(plane, "reads_enabled",
+                                           False))
+        if self._reads_enabled:
+            if self._query_width > self.payload_width:
+                raise ValueError(
+                    f"query width {self._query_width} exceeds the "
+                    f"wire payload width {self.payload_width}: READ "
+                    "records cannot carry this machine's queries")
+            plane.on_reads_done = self._on_reads_served
+        self._sock = None
+        self._thread = None
+        self._stop = False
+        if port is not None:
+            self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            self._sock.setsockopt(socket.SOL_SOCKET,
+                                  socket.SO_REUSEADDR, 1)
+            self._sock.bind((host, port))
+            self._sock.listen(1024)
+            self.address = self._sock.getsockname()
+            self._thread = threading.Thread(target=self._reader_loop,
+                                            daemon=True,
+                                            name="ra-wire-reader")
+            self._thread.start()
+        else:
+            self.address = None
+
+    # ------------------------------------------------------------------
+    # connection control plane (per-connection Python is fine here)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _recovered_lane_next(eng) -> np.ndarray:
+        """First free dedup slot per lane.  A recovered DURABLE engine
+        carries per-slot op watermarks from past clients (machine
+        state is durable, the session/slot directory is not) — a new
+        listener must not hand those slots out again, or a fresh
+        client's early ops would be falsely deduped against a dead
+        client's watermark.  Slots with seq==0 never applied an op and
+        are safe to reuse."""
+        seq = dedup_watermarks(eng)
+        if seq is None:
+            return np.zeros(eng.n_lanes, np.int64)
+        # [lanes, members, slots] -> any member's watermark counts
+        used = seq.max(axis=1) > 0
+        rev = used[:, ::-1]
+        s = used.shape[1]
+        return np.where(rev.any(axis=1), s - rev.argmax(axis=1),
+                        0).astype(np.int64)
+
+    def _alloc_slot(self) -> int:
+        if not self._free:
+            raise RuntimeError(
+                f"wire listener full ({self.max_conns} conns)")
+        return self._free.pop()
+
+    def _bind_sessions(self, slot: int, key: str, n_sessions: int,
+                       tenants: int = 1) -> tuple:
+        """Resolve the connection's session block (same key ⇒ same
+        handles, epoch bumped — the reconnect contract)."""
+        d = self.plane.directory
+        reconnect = f"wire/{key}" in d._bulk
+        h = self.plane.connect_bulk(n_sessions, key=f"wire/{key}",
+                                    tenants=max(1, tenants))
+        base = int(h[0])
+        self.hbase[slot] = base
+        self.nsess[slot] = n_sessions
+        self._ensure_session_arrays()
+        self._assign_slots(h)
+        old = self._keys.get(key)
+        if old is not None and old != slot:
+            self._close_slot(old, reason="superseded")
+        self._keys[key] = slot
+        self._slot_key[slot] = key
+        self._base_dirty = True
+        if reconnect:
+            self.counters["hello_reconnects"] += 1
+        return base, int(d.epoch[base]), reconnect
+
+    def _ensure_session_arrays(self) -> None:
+        # under the pool lock: a HELLO on the reader thread may grow
+        # these while the main thread's block-commit hook is doing
+        # np.add.at on them — a swap mid-scatter would orphan counts
+        with self._lock:
+            cap = self.plane.directory.capacity
+            if len(self._committed) < cap:
+                for name in ("_committed", "_acked_sent"):
+                    arr = getattr(self, name)
+                    grown = np.zeros(cap, np.int64)
+                    grown[:len(arr)] = arr
+                    setattr(self, name, grown)
+            if len(self._slot) < cap:
+                grown = np.full(cap, -1, np.int32)
+                grown[:len(self._slot)] = self._slot
+                self._slot = grown
+
+    def _assign_slots(self, handles: np.ndarray) -> None:
+        """Assign per-lane dedup slots to first-seen sessions (one
+        vectorized rank per bind; reconnects keep their slot)."""
+        from ..ingress.coalesce import batch_rank
+        handles = np.asarray(handles, np.int64)
+        with self._lock:  # a socket HELLO may race a loopback connect
+            fresh = handles[self._slot[handles] < 0]
+            if not len(fresh):
+                return
+            lanes = self.plane.directory.lane[fresh].astype(np.int64)
+            self._slot[fresh] = (self._lane_next[lanes]
+                                 + batch_rank(lanes)).astype(np.int32)
+            np.add.at(self._lane_next, lanes, 1)
+
+    def session_slots(self, handles: np.ndarray) -> np.ndarray:
+        return self._slot[np.asarray(handles, np.int64)]
+
+    def loopback_connect(self, n_conns: int, *, sessions_per_conn: int
+                         = 1, key: str = "fleet",
+                         tenants: int = 1) -> np.ndarray:
+        """Bulk-connect ``n_conns`` in-process connections (the
+        C100k→C1M ladder transport): one control-plane call places the
+        whole fleet — per-connection HELLO framing at a million
+        connections would be exactly the per-object cost this plane
+        exists to avoid.  Returns the conn slot ids; same key ⇒ same
+        slots/sessions with every epoch bumped (a fleet reconnect)."""
+        spc = int(sessions_per_conn)
+        known = f"wire/{key}" in self.plane.directory._bulk
+        h = self.plane.connect_bulk(n_conns * spc, key=f"wire/{key}",
+                                    tenants=max(1, tenants))
+        if known:
+            slots = np.array(sorted(
+                s for s in self._lb_slots
+                if self._lb_key.get(s) == key), np.int64)
+            self.counters["hello_reconnects"] += n_conns
+            record("wire.conn", bulk=key, n=int(n_conns),
+                   reconnect=True)
+            return slots
+        if len(self._free) < n_conns:
+            raise RuntimeError(
+                f"wire listener full ({self.max_conns} conns)")
+        slots = np.array([self._alloc_slot() for _ in range(n_conns)],
+                         np.int64)
+        self.cstate[slots] = _S_DATA
+        self.hbase[slots] = int(h[0]) + np.arange(n_conns,
+                                                  dtype=np.int64) * spc
+        self.nsess[slots] = spc
+        self._lb_slots.update(int(s) for s in slots)
+        self._is_lb[slots] = True
+        for s in slots:
+            self._lb_key[int(s)] = key
+        self._ensure_session_arrays()
+        self._assign_slots(h)
+        self._base_dirty = True
+        self.counters["conns_opened"] += n_conns
+        record("wire.conn", bulk=key, n=int(n_conns), reconnect=False)
+        return slots
+
+    def _claim_block(self, key: str, n_sessions: int, tenants: int,
+                     slots, committed) -> np.ndarray:
+        """Bind ``key``'s session block on this listener with the OLD
+        home's dedup slots claimed verbatim and the committed-row
+        watermarks seeded at the client's acked counts — the shared
+        core of :meth:`loopback_rehome` and :meth:`claim_sessions`."""
+        d = self.plane.directory
+        if f"wire/{key}" in d._bulk:
+            raise RuntimeError(
+                f"rehome of known key {key!r}: a fleet re-homes onto "
+                "a listener that never served it (same-listener "
+                "reconnects go through loopback_connect)")
+        h = self.plane.connect_bulk(n_sessions, key=f"wire/{key}",
+                                    tenants=max(1, tenants))
+        handles = np.asarray(h, np.int64)
+        claim = np.asarray(slots, np.int32)
+        if len(claim) != len(handles):
+            raise ValueError("rehome: one claimed slot per session")
+        self._ensure_session_arrays()
+        with self._lock:
+            lanes = d.lane[handles].astype(np.int64)
+            packed = (lanes << 32) | claim.astype(np.int64)
+            if len(np.unique(packed)) != len(packed):
+                raise ValueError(
+                    "rehome: duplicate (lane, slot) claims")
+            bound = np.flatnonzero(self._slot >= 0)
+            bound = bound[~np.isin(bound, handles)]
+            if len(bound):
+                have = (d.lane[bound].astype(np.int64) << 32) | \
+                    self._slot[bound].astype(np.int64)
+                if np.isin(packed, have).any():
+                    raise ValueError(
+                        "rehome: claimed slot already bound to a "
+                        "live session on this listener")
+            self._slot[handles] = claim
+            # later FRESH binds must allocate above every claim
+            np.maximum.at(self._lane_next, lanes,
+                          claim.astype(np.int64) + 1)
+            c = np.asarray(committed, np.int64)
+            self._committed[handles] = c
+            self._acked_sent[handles] = c
+        return handles
+
+    def claim_sessions(self, key: str, n_sessions: int, *, slots,
+                       committed, tenants: int = 1,
+                       trace_ctx=None) -> np.ndarray:
+        """Pre-claim a re-homed TCP client's session block:
+        the cross-process twin of :meth:`loopback_rehome`, minus the
+        loopback conn plumbing.  The orchestrator calls this on the
+        NEW home (over the ``host_rehome`` control verb) before
+        pointing the client at it; the client's subsequent HELLO under
+        the same key then finds its sessions bound with the OLD dedup
+        slots — so replayed ``[slot, op_id, delta]`` payloads still
+        hit the recovered machine's per-(lane, slot) watermarks, the
+        dedup that makes the at-least-once replay exactly-once.
+
+        Returns the per-session DURABLY-APPLIED op-id watermarks from
+        the recovered machine state — the client re-bases its
+        ever-placed bookkeeping against these
+        (:meth:`WireClient.rehome_to`)."""
+        handles = self._claim_block(key, n_sessions, tenants, slots,
+                                    committed)
+        d = self.plane.directory
+        lanes = d.lane[handles].astype(np.int64)
+        dur = np.zeros(n_sessions, np.int64)
+        seq = dedup_watermarks(self.plane.engine)
+        if seq is not None:
+            seq = seq.max(axis=1)
+            dur = seq[lanes, np.asarray(slots, np.int64)] \
+                .astype(np.int64)
+        record("placement.rehome", trace=trace_ctx, key=key,
+               sessions=int(n_sessions), conns=0)
+        return dur
+
+    def loopback_rehome(self, n_conns: int, *, sessions_per_conn: int
+                        = 1, key: str = "fleet", tenants: int = 1,
+                        slots: np.ndarray, committed: np.ndarray,
+                        trace_ctx=None) -> np.ndarray:
+        """Adopt a re-homed loopback fleet (placement failover): bind
+        ``key``'s session block on THIS listener while
+        honoring the fleet's existing machine-level identity —
+
+        * ``slots`` are the per-session dedup slots the OLD home
+          handed out, claimed verbatim: a replayed op's payload still
+          carries its old ``[slot, op_id, delta]``, and the recovered
+          machine's per-(lane, slot) watermark is what absorbs the
+          duplicate.  Handing out FRESH slots here would re-apply
+          every replayed committed op — the double-apply this method
+          exists to prevent.
+        * ``committed`` seeds the per-session committed-row watermark
+          at the client's ACKED count: ranks burned on the old home
+          (placed rows that never committed) are dropped client-side
+          at re-home, so rank ``committed[s]`` is exactly the next row
+          the new home will commit for session ``s``.
+
+        Every re-homed session's epoch bumps (the replay trigger of
+        the reconnect contract).  Returns the conn slot ids."""
+        spc = int(sessions_per_conn)
+        d = self.plane.directory
+        if len(self._free) < n_conns:
+            raise RuntimeError(
+                f"wire listener full ({self.max_conns} conns)")
+        handles = self._claim_block(key, n_conns * spc, tenants,
+                                    slots, committed)
+        h = handles
+        conn_slots = np.array([self._alloc_slot()
+                               for _ in range(n_conns)], np.int64)
+        self.cstate[conn_slots] = _S_DATA
+        self.hbase[conn_slots] = int(h[0]) + np.arange(
+            n_conns, dtype=np.int64) * spc
+        self.nsess[conn_slots] = spc
+        self._lb_slots.update(int(s) for s in conn_slots)
+        self._is_lb[conn_slots] = True
+        for s in conn_slots:
+            self._lb_key[int(s)] = key
+        self._base_dirty = True
+        d.epoch[handles] += 1
+        self.plane.counters["reconnects"] += len(handles)
+        self.counters["conns_opened"] += n_conns
+        self.counters["hello_reconnects"] += n_conns
+        record("placement.rehome", trace=trace_ctx, key=key,
+               sessions=len(handles), conns=int(n_conns))
+        return conn_slots
+
+    def loopback_feed(self, conns: np.ndarray, rec_bytes: bytes,
+                      counts: np.ndarray) -> np.ndarray:
+        """Scatter encoded DATA records into the fleet's rings (the
+        loopback transport's 'send').  ``rec_bytes`` is the wave's
+        records concatenated in ``conns`` order, ``counts`` records per
+        connection.  Returns the per-connection count actually placed
+        (a full ring refuses the tail — the same backpressure a socket
+        client feels as a blocked send)."""
+        conns = np.asarray(conns, np.int64)
+        counts = np.asarray(counts, np.int64)
+        r, b = self.stride, self.ring_bytes
+        with self._lock:
+            space = (b - self.rfill[conns]) // r
+            take = np.minimum(counts, space)
+            if not take.any():
+                return take
+            # record-level scatter: byte positions for every accepted
+            # record, wrap-aware, one fancy-indexed store
+            starts = np.cumsum(counts) - counts      # wave offsets
+            rec_i = np.arange(int(take.sum()))
+            conn_rep = np.repeat(np.arange(len(conns)), take)
+            rank = rec_i - (np.cumsum(take) - take)[conn_rep]
+            src_rec = starts[conn_rep] + rank
+            tail = (self.rhead[conns] + self.rfill[conns]) % b
+            dst = (tail[conn_rep, None] + rank[:, None] * r
+                   + np.arange(r)[None, :]) % b
+            flat = np.frombuffer(rec_bytes, np.uint8).reshape(-1, r)
+            self.rbuf[conns[conn_rep, None], dst] = flat[src_rec]
+            np.add.at(self.rfill, conns, take * r)
+            self.counters["bytes_recv"] += int(take.sum()) * r
+        return take
+
+    def loopback_kill(self, conns: np.ndarray) -> None:
+        """Kill + instantly redial a set of loopback connections (the
+        reconnect-storm primitive): unswept ring bytes are LOST (the
+        in-flight window a real connection drop loses) and every
+        victim session's epoch bumps — the at-least-once client's
+        replay trigger.  Placement, dedup watermarks and dedup slots
+        all survive, per the reconnect contract."""
+        conns = np.asarray(conns, np.int64)
+        with self._lock:
+            self.rfill[conns] = 0
+            self.rhead[conns] = 0
+        d = self.plane.directory
+        spc = self.nsess[conns]
+        h = np.repeat(self.hbase[conns], spc) + _ragged_arange(spc)
+        d.epoch[h] += 1
+        self.plane.counters["reconnects"] += len(h)
+        self.counters["hello_reconnects"] += len(conns)
+        record("wire.conn", storm=int(len(conns)), reconnect=True)
+
+    def collect_loopback(self) -> tuple:
+        """Drain the loopback credit/ack outboxes: returns
+        ``(credit_chunks, ack_chunks)`` where each chunk is
+        ``(conn_ids, per_conn_counts, records)`` with records a
+        credit_dtype / ack_dtype array in conn order (the fleet's
+        vectorized decode)."""
+        credit, self._lb_credit = self._lb_credit, []
+        ack, self._lb_ack = self._lb_ack, []
+        return credit, ack
+
+    def _close_slot(self, slot: int, reason: str = "closed") -> None:
+        sock = self._socks.pop(slot, None)
+        if sock is not None:
+            sel = getattr(self, "_sel", None)
+            if sel is not None:
+                # a closed fd left registered would collide with the
+                # next accept() reusing the same fd number
+                try:
+                    sel.unregister(sock)
+                except (KeyError, ValueError, OSError):
+                    pass
+            try:
+                sock.close()
+            except OSError:
+                pass
+        self._hello_buf.pop(slot, None)
+        self._overflow.pop(slot, None)
+        self._paused.discard(slot)
+        self._lb_slots.discard(slot)
+        self._lb_key.pop(slot, None)
+        self._is_lb[slot] = False
+        # the slot's key binding dies with it: a stale _keys entry
+        # would let a later reconnect of this key close whatever
+        # connection REUSED the slot number
+        key = self._slot_key.pop(slot, None)
+        if key is not None and self._keys.get(key) == slot:
+            del self._keys[key]
+        if self.cstate[slot] != _S_FREE:
+            with self._lock:  # vs a concurrent sweep's ring advance
+                self.cstate[slot] = _S_FREE
+                self.rfill[slot] = 0
+                self.rhead[slot] = 0
+            self._free.append(slot)
+            self.counters["conns_closed"] += 1
+            record("wire.conn", slot=int(slot), closed=True,
+                   reason=reason)
+
+    def close(self) -> None:
+        self._stop = True
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+        for slot in list(self._socks):
+            self._close_slot(slot, reason="listener stop")
+        if self.plane.on_block_committed == self._on_block_committed:
+            self.plane.on_block_committed = None
+
+    # ------------------------------------------------------------------
+    # reader (per-connection work only; zero per-command work)
+    # ------------------------------------------------------------------
+
+    def _reader_loop(self) -> None:
+        sel = self._sel = selectors.DefaultSelector()
+        sel.register(self._sock, selectors.EVENT_READ, ("accept", None))
+        scratch = bytearray(1 << 16)
+        mv = memoryview(scratch)
+        while not self._stop:
+            for key, _ev in sel.select(timeout=0.005):
+                kind, slot = key.data
+                if kind == "accept":
+                    self._accept(sel)
+                else:
+                    self._readable(sel, key.fileobj, slot, mv)
+            # resume paused connections whose rings drained: replay
+            # the stashed overflow first — those bytes were already
+            # consumed from the kernel and only exist here
+            for slot in list(self._paused):
+                held = self._overflow.get(slot, b"")
+                if held:
+                    written = self._ring_write(slot, held)
+                    if written < len(held):
+                        self._overflow[slot] = held[written:]
+                        continue
+                    self._overflow.pop(slot, None)
+                if self.ring_bytes - int(self.rfill[slot]) \
+                        >= self.stride:
+                    self._paused.discard(slot)
+                    sock = self._socks.get(slot)
+                    if sock is not None:
+                        try:
+                            sel.register(sock, selectors.EVENT_READ,
+                                         ("conn", slot))
+                        except (KeyError, ValueError, OSError):
+                            pass
+        sel.close()
+
+    def _accept(self, sel) -> None:
+        try:
+            conn, _addr = self._sock.accept()
+        except OSError:
+            return
+        conn.setblocking(False)
+        conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        try:
+            slot = self._alloc_slot()
+        except RuntimeError:
+            conn.close()
+            return
+        self.cstate[slot] = _S_HELLO
+        self._socks[slot] = conn
+        self._hello_buf[slot] = bytearray()
+        sel.register(conn, selectors.EVENT_READ, ("conn", slot))
+        self.counters["conns_opened"] += 1
+        record("wire.conn", slot=int(slot), closed=False)
+
+    def _readable(self, sel, sock, slot: int, mv) -> None:
+        try:
+            n = sock.recv_into(mv)
+        except BlockingIOError:
+            return
+        except OSError:
+            n = 0
+        if n == 0:
+            try:
+                sel.unregister(sock)
+            except (KeyError, ValueError):
+                pass
+            self._close_slot(slot, reason="eof")
+            return
+        if self.cstate[slot] == _S_HELLO:
+            rest = self._handle_hello(slot, mv[:n])
+            if rest is None:
+                try:
+                    sel.unregister(sock)
+                except (KeyError, ValueError):
+                    pass
+                self._close_slot(slot, reason="bad hello")
+                return
+            if not rest:
+                return
+            data = rest
+        else:
+            data = mv[:n]
+        written = self._ring_write(slot, data)
+        if written < len(data):
+            # ring full: stash the remainder (already consumed from
+            # the kernel!) and pause the conn — the kernel buffer +
+            # the client's blocked send are the backpressure tier
+            # below us
+            self._overflow[slot] = self._overflow.get(slot, b"") + \
+                bytes(data[written:])
+            try:
+                sel.unregister(sock)
+            except (KeyError, ValueError):
+                pass
+            self._paused.add(slot)
+
+    def _handle_hello(self, slot: int, data) -> Optional[bytes]:
+        """Accumulate + parse the HELLO frame; returns leftover bytes
+        (the start of the data stream), b"" when incomplete, None on a
+        protocol error."""
+        buf = self._hello_buf[slot]
+        buf += data
+        if len(buf) < _LEN.size:
+            return b""
+        (length,) = _LEN.unpack_from(buf)
+        if length < 9 or length > 1 << 16:
+            self.counters["protocol_errors"] += 1
+            record("wire.error", slot=int(slot), why="hello length")
+            return None
+        if len(buf) < _LEN.size + length:
+            return b""
+        body = bytes(buf[_LEN.size:_LEN.size + length])
+        rest = bytes(buf[_LEN.size + length:])
+        try:
+            hello = decode_hello(body)
+        except (ValueError, struct.error):
+            self.counters["protocol_errors"] += 1
+            record("wire.error", slot=int(slot), why="hello parse")
+            return None
+        if hello["version"] != WIRE_VERSION:
+            self.counters["protocol_errors"] += 1
+            record("wire.error", slot=int(slot), why="version",
+                   got=hello["version"])
+            self._refuse(slot, E_VERSION,
+                         "wire version %d != %d"
+                         % (hello["version"], WIRE_VERSION))
+            return None
+        if hello["payload_width"] != self.payload_width:
+            # a mismatched C would desynchronize the fixed-stride sweep
+            # on the very first DATA frame — refuse loudly instead
+            self.counters["protocol_errors"] += 1
+            record("wire.error", slot=int(slot), why="payload_width",
+                   got=hello["payload_width"], want=self.payload_width)
+            self._refuse(slot, E_PAYLOAD_WIDTH,
+                         "payload_width %d != listener's %d"
+                         % (hello["payload_width"], self.payload_width))
+            return None
+        if not (1 <= hello["n_sessions"] <= 1 << 16):
+            self.counters["protocol_errors"] += 1
+            record("wire.error", slot=int(slot), why="n_sessions")
+            return None
+        base, epoch, reconnect = self._bind_sessions(
+            slot, hello["key"], hello["n_sessions"], hello["tenants"])
+        self.cstate[slot] = _S_DATA
+        self._hello_buf.pop(slot, None)
+        if reconnect:
+            record("wire.conn", slot=int(slot), key=hello["key"],
+                   reconnect=True, epoch=epoch)
+        sock = self._socks.get(slot)
+        if sock is not None:
+            h = base + np.arange(hello["n_sessions"], dtype=np.int64)
+            if not _sendall_nb(sock, encode_hello_ack(
+                    epoch, base, slots=self.session_slots(h),
+                    payload_width=self.payload_width),
+                    deadline_s=2.0):
+                return None
+            # replay the authoritative committed watermarks: a
+            # reconnecting client rebuilds its ack state from these
+            # (the crash-reconnect contract, wire/client.py)
+            with self._lock:
+                have = np.flatnonzero(self._committed[h] > 0)
+                rec = np.zeros(len(have), ack_dtype)
+                rec["sess"] = have
+                rec["acked"] = self._committed[h[have]]
+                self._acked_sent[h[have]] = self._committed[h[have]]
+            if len(rec):
+                self.counters["ack_rows"] += len(rec)
+                _sendall_nb(sock, self._ack_frame(rec))
+        return rest
+
+    def _refuse(self, slot: int, code: int, msg: str) -> None:
+        """Best-effort ERR frame before the caller closes the slot — a
+        refused client should see WHY, not a silent hangup it can only
+        diagnose as a timeout."""
+        sock = self._socks.get(slot)
+        if sock is not None:
+            _sendall_nb(sock, encode_error(code, msg), deadline_s=1.0)
+
+    def _ring_write(self, slot: int, data) -> int:
+        """Wrap-aware copy of ``data`` into the slot's ring; returns
+        the byte count written (a short write means the ring is full —
+        the caller stashes the remainder and pauses the connection)."""
+        n = len(data)
+        with self._lock:
+            b = self.ring_bytes
+            fill = int(self.rfill[slot])
+            space = b - fill
+            take = min(space, n)
+            if take > 0:
+                tail = (int(self.rhead[slot]) + fill) % b
+                first = min(take, b - tail)
+                buf = np.frombuffer(data, np.uint8, take)
+                self.rbuf[slot, tail:tail + first] = buf[:first]
+                if take > first:
+                    self.rbuf[slot, :take - first] = buf[first:]
+                self.rfill[slot] += take
+                self.counters["bytes_recv"] += take
+        return take
+
+    # ------------------------------------------------------------------
+    # serving-path placement view
+    # ------------------------------------------------------------------
+
+    def bind_placement(self, cache, local_engines, rids=None) -> None:
+        """Wire a revision-monotone :class:`PlacementCache` into the
+        sweep: rows whose lane the cache places on an engine NOT served
+        here are refused with a typed REHOME hint instead of submitted
+        — a frame routed on a stale client-side view never silently
+        misroutes into a foreign (possibly dead) engine's lanes.  The
+        cache is shared with whatever refreshes it on table commits;
+        the sweep re-derives its lane mask whenever the cache revision
+        moves (including an :meth:`PlacementCache.invalidate`, which
+        fails OPEN: no view is not the same as a foreign view).
+
+        ``rids`` names the table range ids THIS listener's lane space
+        belongs to.  Per-engine lane spaces overlap (every
+        engine's range covers ``[0, lanes)`` under its own rid), so
+        the mask must be derived only from the ranges this listener
+        serves — a foreign engine's range over the same lane numbers
+        says nothing about these sessions.  ``None`` keeps the
+        all-ranges view (globally partitioned lane spaces)."""
+        self._placement = cache
+        self._local_engines = set(local_engines)
+        self._placement_rids = None if rids is None else frozenset(rids)
+        self._placement_rev = -2
+
+    def add_local_engine(self, engine_id: str) -> None:
+        """Adoption hook: lanes the cache places on ``engine_id`` are
+        local from now on (the survivor serves the victim's ranges)."""
+        self._local_engines.add(engine_id)
+        self._placement_rev = -2
+
+    def _refresh_placement_mask(self) -> None:
+        cache = self._placement
+        if int(cache.rev) == self._placement_rev:
+            return
+        n_lanes = int(self.plane.engine.n_lanes)
+        local = np.ones(n_lanes, bool)   # fail open: unknown = local
+        home = np.full(n_lanes, -1, np.int64)
+        names: list = []
+        gens: list = []
+        if int(cache.rev) >= 0:
+            # per-RANGE Python (a handful of ranges, control plane) —
+            # the per-ROW path below stays one mask gather
+            for rid, ent in sorted(cache.ranges().items()):  # ra09-ok: iterates placement RANGES (control-plane scale), rows stay vectorized
+                if self._placement_rids is not None and \
+                        rid not in self._placement_rids:
+                    continue
+                lo = max(0, int(ent["lo"]))
+                hi = min(n_lanes, int(ent["hi"]))
+                if hi <= lo:
+                    continue
+                eng = ent["engine"]
+                local[lo:hi] = eng in self._local_engines
+                home[lo:hi] = len(names)
+                names.append(eng)
+                gens.append(int(ent["generation"]))
+        self._lane_local = local
+        self._lane_home = home
+        self._owner_names = names
+        self._owner_gens = gens
+        self._placement_rev = int(cache.rev)
+
+    def _stale_rows(self, handles: np.ndarray,
+                    ok: np.ndarray) -> Optional[np.ndarray]:
+        """Mask of swept rows whose lane's home is NOT served here per
+        the bound placement view (one gather — RA09-clean)."""
+        self._refresh_placement_mask()
+        if self._lane_local is None or self._lane_local.all():
+            return None
+        lanes = self.plane.directory.lanes_of(handles)
+        return ok & ~self._lane_local[lanes]
+
+    def _send_rehome(self, conn_of: np.ndarray, handles: np.ndarray,
+                     stale: np.ndarray) -> None:
+        """One typed REHOME hint per affected connection: the new home
+        (engine, generation, table revision) of the FIRST refused lane
+        — enough for the client to re-resolve and reconnect.  Rare
+        (the post-migration window only), so per-connection Python is
+        acceptable here like every other control-plane frame."""
+        rows = np.flatnonzero(stale)
+        lanes = self.plane.directory.lanes_of(handles[rows])
+        conns, counts = self._runs(conn_of[rows])
+        firsts = np.cumsum(counts) - counts
+        rev = int(self._placement.rev)
+        self.rehome_hints += len(conns)
+        for i in range(len(conns)):  # ra09-ok: per-CONNECTION rehome hint (rare, post-migration only)
+            owner = int(self._lane_home[int(lanes[firsts[i]])])
+            engine = self._owner_names[owner] if owner >= 0 else ""
+            gen = self._owner_gens[owner] if owner >= 0 else 0
+            slot = int(conns[i])
+            record("placement.rehome_hint", slot=slot, engine=engine,
+                   generation=gen, rev=rev, rows=int(counts[i]))
+            if self._is_lb[slot]:
+                self._lb_rehome.append((slot, engine, gen, rev))
+            else:
+                self._send_frame_to(slot, encode_rehome(engine, gen,
+                                                        rev))
+
+    def collect_rehome_hints(self) -> list:
+        """Drain the loopback rehome-hint outbox: ``(slot, engine,
+        generation, rev)`` tuples (the fleet-side twin of T_REHOME)."""
+        with self._lock:
+            out, self._lb_rehome = self._lb_rehome, []
+        return out
+
+    # ------------------------------------------------------------------
+    # sweep — the RA09-gated vectorized hot path
+    # ------------------------------------------------------------------
+
+    def sweep(self) -> int:
+        """Drain whole records from every connection's ring into ONE
+        ``(handles, seqnos, payloads)`` ingress batch, submit it, and
+        serialize the per-row verdicts back as CREDIT frames.  Returns
+        the number of rows swept.  Zero per-command Python: gathers,
+        ``frombuffer`` views and column slices end to end (rule RA09)."""
+        r, b = self.stride, self.ring_bytes
+        with self._lock:
+            counts_all = np.where(self.cstate == _S_DATA,
+                                  self.rfill // r, 0)
+            active = np.flatnonzero(counts_all)
+            if active.size == 0:
+                return 0
+            counts = counts_all[active]
+            budget = max(1, self.sweep_rows // max(1, active.size))
+            np.minimum(counts, budget, out=counts)
+            head = self.rhead[active].copy()
+        maxr = int(counts.max())
+        idx = (head[:, None] + np.arange(maxr * r)) % b
+        chunk = self.rbuf[active[:, None], idx]
+        recs = chunk.reshape(active.size, maxr, r)
+        valid = np.arange(maxr)[None, :] < counts[:, None]
+        flat = recs[valid]
+        rec = flat.view(self._rec_dtype())[:, 0]
+        conn_of = np.repeat(active, counts)
+        # READ records share the DATA stride — ONE frombuffer sweep
+        # covers the mixed stream, the type column splits it
+        is_read = rec["type"] == T_READ
+        wf = (rec["len"] == r - 4) \
+            & ((rec["type"] == T_DATA) | is_read) \
+            & (rec["sess"].astype(np.int64) < self.nsess[conn_of])
+        ok = wf & ~is_read
+        with self._lock:
+            # a conn closed/killed between the snapshot and here has
+            # had its ring RESET — advancing it would drive rfill
+            # negative and corrupt the slot for its next tenant; the
+            # clamp covers a loopback kill (same slot, emptied ring)
+            live = self.cstate[active] == _S_DATA
+            a = active[live]
+            self.rhead[a] = (head[live] + counts[live] * r) % b
+            self.rfill[a] = np.maximum(
+                self.rfill[a] - counts[live] * r, 0)
+        if not wf.all():
+            # AFTER the ring advance: closing resets the slot's ring
+            self._protocol_errors(np.unique(conn_of[~wf]),
+                                  int((~wf).sum()))
+        sess = rec["sess"].astype(np.int64)
+        handles = self.hbase[conn_of] + sess
+        seqnos = rec["seqno"].astype(np.int64)
+        if self._placement is not None and wf.any():
+            # placement staleness gate: rows whose lane
+            # moved to a foreign engine get a typed REHOME hint, not a
+            # submit — they earn neither credit nor a shed verdict
+            # (the client re-sends them at the new home after
+            # following the hint).  Reads rehome too: a consistent
+            # read served by a stale home would read a frozen lane
+            stale = self._stale_rows(handles, wf)
+            if stale is not None and stale.any():
+                self._send_rehome(conn_of, handles, stale)
+                wf &= ~stale
+                ok &= ~stale
+        rd = wf & is_read
+        status = np.full(len(rec), SHED, np.int8)
+        if ok.any():
+            status[ok] = self.plane.submit(handles[ok], seqnos[ok],
+                                           rec["pay"][ok])
+        if rd.any():
+            # the verdict here is ADMISSION only (ladder bias: reads
+            # shed first under load); served/refused outcomes fan back
+            # later as READ_REPLY records off the settlement hook
+            status[rd] = self.plane.submit_reads(
+                handles[rd], seqnos[rd],
+                rec["pay"][rd][:, :self._query_width])
+            self.counters["read_rows"] += int(rd.sum())
+        self.counters["sweeps"] += 1
+        self.counters["swept_rows"] += int(ok.sum())
+        # malformed rows are protocol errors, NOT shed verdicts: only
+        # real rows feed the credit histogram and the credit frames —
+        # reads join the SAME credit fan-out (one verdict stream)
+        self._note_statuses(status[wf])
+        self._send_credit(conn_of[wf], sess[wf], seqnos[wf],
+                          status[wf])
+        return int(wf.sum())
+
+    def _rec_dtype(self):
+        from .framing import data_dtype
+        return data_dtype(self.payload_width)
+
+    def _note_statuses(self, status: np.ndarray) -> None:
+        """Fold the sweep's verdicts into the credit-level histogram
+        counters + the shed-transition event (transitions only — the
+        emit path must not ride a million-row batch)."""
+        hist = np.bincount(status, minlength=6)
+        c = self.counters
+        c["credit_ok"] += int(hist[0])
+        c["credit_slow"] += int(hist[1])
+        c["credit_defer"] += int(hist[2])
+        c["credit_reject"] += int(hist[3])
+        c["credit_dup"] += int(hist[4])
+        c["credit_shed"] += int(hist[5])
+        shedding = bool(hist[SHED])
+        if shedding and not self._shedding:
+            record("wire.shed", rows=int(hist[SHED]),
+                   level=int(self.plane.ladder.level))
+        self._shedding = shedding
+        level = int(self.plane.ladder.level)
+        if level != self._last_credit_level:
+            record("wire.credit", old=self._last_credit_level,
+                   new=level)
+            self._last_credit_level = level
+
+    def _send_credit(self, conn_of, sess, seqnos, status) -> None:
+        """One CREDIT frame per connection with swept rows this pass:
+        records built in one vectorized fill; socket delivery is one
+        syscall per CONNECTION (never per command)."""
+        n = len(sess)
+        if n == 0:
+            return
+        rec = np.zeros(n, credit_dtype)
+        rec["sess"] = sess
+        rec["seqno"] = seqnos
+        rec["status"] = status
+        self.counters["credit_rows"] += n
+        # conn_of is non-decreasing (records gathered in conn order)
+        conns, counts = self._runs(conn_of)
+        level = int(self.plane.ladder.level)
+        lb = self._is_lb[conns]
+        if lb.any():
+            keep = np.repeat(lb, counts)
+            self._lb_credit.append((conns[lb], counts[lb], rec[keep]))
+        if (~lb).any():
+            bounds = np.cumsum(counts)
+            starts = bounds - counts
+            for i in np.flatnonzero(~lb):  # ra09-ok: per-CONNECTION socket write (one frame/syscall per conn, never per command)
+                self._send_frame_to(
+                    int(conns[i]),
+                    self._credit_frame(level,
+                                       rec[starts[i]:bounds[i]]))
+
+    @staticmethod
+    def _runs(keys: np.ndarray) -> tuple:
+        """Run-length encode a non-decreasing key array (vectorized)."""
+        n = len(keys)
+        new = np.empty(n, bool)
+        new[0] = True
+        new[1:] = keys[1:] != keys[:-1]
+        starts = np.flatnonzero(new)
+        counts = np.diff(np.append(starts, n))
+        return keys[starts], counts
+
+    @staticmethod
+    def _credit_frame(level: int, rec: np.ndarray) -> bytes:
+        body = struct.pack("<BBBH", 4, level, 0, len(rec)) \
+            + rec.tobytes()
+        return _LEN.pack(len(body)) + body
+
+    def _send_frame_to(self, slot: int, frame: bytes) -> None:
+        sock = self._socks.get(slot)
+        if sock is None:
+            return
+        if not _sendall_nb(sock, frame):
+            self._close_slot(slot, reason="send failed")
+
+    def _protocol_errors(self, bad_conns: np.ndarray, rows: int) -> None:
+        self.counters["protocol_errors"] += rows
+        for slot in bad_conns.tolist():  # ra09-ok: per-CONNECTION close on a protocol error (rare, terminal)
+            record("wire.error", slot=int(slot), why="bad record")
+            self._close_slot(int(slot), reason="protocol error")
+
+    # ------------------------------------------------------------------
+    # acks — block-commit watermarks off the plane's credit release
+    # ------------------------------------------------------------------
+
+    def _on_block_committed(self, handles: np.ndarray) -> None:
+        """IngressPlane retire hook: count committed placed rows per
+        session and fan the advanced watermarks out as ACK frames
+        (driven by the driver's EXISTING async committed-watermark
+        readbacks — no new host syncs)."""
+        self._ensure_session_arrays()
+        with self._lock:  # vs a reader-thread HELLO growing the arrays
+            np.add.at(self._committed, handles, 1)
+            touched = np.unique(handles)
+            moved = touched[self._committed[touched]
+                            > self._acked_sent[touched]]
+            if not moved.size:
+                return
+            acked = self._committed[moved]
+            self._acked_sent[moved] = acked
+        if self._base_dirty:
+            live = np.flatnonzero(self.cstate == _S_DATA)
+            order = np.argsort(self.hbase[live], kind="stable")
+            self._base_slot = live[order]
+            self._base_sorted = self.hbase[self._base_slot]
+            self._base_dirty = False
+        if not len(self._base_slot):
+            return
+        pos = np.searchsorted(self._base_sorted, moved, side="right") - 1
+        pos = np.clip(pos, 0, len(self._base_sorted) - 1)
+        conns = self._base_slot[pos]
+        in_range = (moved >= self._base_sorted[pos]) & \
+            (moved < self._base_sorted[pos] + self.nsess[conns])
+        conns, moved, acked = conns[in_range], moved[in_range], \
+            acked[in_range]
+        if not len(conns):
+            return
+        order = np.argsort(conns, kind="stable")
+        conns, moved, acked = conns[order], moved[order], acked[order]
+        rec = np.zeros(len(moved), ack_dtype)
+        rec["sess"] = moved - self.hbase[conns]
+        rec["acked"] = acked
+        self.counters["ack_rows"] += len(rec)
+        runs, counts = self._runs(conns)
+        lb = self._is_lb[runs]
+        if lb.any():
+            keep = np.repeat(lb, counts)
+            self._lb_ack.append((runs[lb], counts[lb], rec[keep]))
+        if (~lb).any():
+            bounds = np.cumsum(counts)
+            starts = bounds - counts
+            for i in np.flatnonzero(~lb):
+                self._send_frame_to(
+                    int(runs[i]),
+                    self._ack_frame(rec[starts[i]:bounds[i]]))
+
+    @staticmethod
+    def _ack_frame(rec: np.ndarray) -> bytes:
+        body = struct.pack("<BBHH", 5, 0, 0, len(rec)) + rec.tobytes()
+        return _LEN.pack(len(body)) + body
+
+    # ------------------------------------------------------------------
+    # read replies — served/refused reads off the plane's settlement
+    # ------------------------------------------------------------------
+
+    def _on_reads_served(self, handles, seqnos, statuses, wms,
+                         payloads) -> None:
+        """IngressPlane read-settlement hook: fan READ_REPLY
+        records out per connection — the same searchsorted handle-base
+        lookup as the ack path, driven by the driver's EXISTING async
+        read-aux readbacks (no new host syncs).  ``wm`` carries the
+        certified commit watermark each read was served at (-1 on a
+        shed/stale refusal)."""
+        if self._base_dirty:
+            live = np.flatnonzero(self.cstate == _S_DATA)
+            order = np.argsort(self.hbase[live], kind="stable")
+            self._base_slot = live[order]
+            self._base_sorted = self.hbase[self._base_slot]
+            self._base_dirty = False
+        if not len(self._base_slot) or not len(handles):
+            return
+        handles = np.asarray(handles, np.int64)
+        pos = np.searchsorted(self._base_sorted, handles,
+                              side="right") - 1
+        pos = np.clip(pos, 0, len(self._base_sorted) - 1)
+        conns = self._base_slot[pos]
+        in_range = (handles >= self._base_sorted[pos]) & \
+            (handles < self._base_sorted[pos] + self.nsess[conns])
+        if not in_range.any():
+            return
+        conns = conns[in_range]
+        order = np.argsort(conns, kind="stable")
+        conns = conns[order]
+        keep_ix = np.flatnonzero(in_range)[order]
+        w = self._reply_width
+        rec = np.zeros(len(conns), read_reply_dtype(w))
+        rec["sess"] = handles[keep_ix] - self.hbase[conns]
+        rec["seqno"] = np.asarray(seqnos)[keep_ix]
+        rec["status"] = np.asarray(statuses)[keep_ix]
+        rec["wm"] = np.asarray(wms)[keep_ix]
+        pay = np.asarray(payloads)[keep_ix]
+        rec["pay"][:, :pay.shape[1]] = pay[:, :w]
+        self.counters["read_reply_rows"] += len(rec)
+        runs, counts = self._runs(conns)
+        lb = self._is_lb[runs]
+        if lb.any():
+            keep = np.repeat(lb, counts)
+            self._lb_read.append((runs[lb], counts[lb], rec[keep]))
+        if (~lb).any():
+            bounds = np.cumsum(counts)
+            starts = bounds - counts
+            for i in np.flatnonzero(~lb):  # ra09-ok: per-CONNECTION socket write (one READ_REPLY frame/syscall per conn, never per read)
+                self._send_frame_to(
+                    int(runs[i]),
+                    self._read_reply_frame(rec[starts[i]:bounds[i]]))
+
+    def _read_reply_frame(self, rec: np.ndarray) -> bytes:
+        body = struct.pack("<BBHH", T_READ_REPLY, self._reply_width, 0,
+                           len(rec)) + rec.tobytes()
+        return _LEN.pack(len(body)) + body
+
+    def collect_read_replies(self) -> list:
+        """Drain the loopback READ_REPLY outbox: a list of (conn ids,
+        per-conn row counts, records) tuples, records typed
+        ``read_reply_dtype(reply_width)`` (the in-process twin of the
+        TCP frame — the fleet/bench harvests replies here)."""
+        with self._lock:
+            out, self._lb_read = self._lb_read, []
+        return out
+
+    # ------------------------------------------------------------------
+    # observability
+    # ------------------------------------------------------------------
+
+    def gauges(self) -> dict:
+        live = int((self.cstate == _S_DATA).sum())
+        return {
+            "conns": live,
+            "socket_conns": len(self._socks),
+            "loopback_conns": len(self._lb_slots),
+            "paused_conns": len(self._paused),
+            "queue_bytes": int(self.rfill.sum()),
+            "ring_bytes": self.ring_bytes,
+            "max_conns": self.max_conns,
+        }
+
+    def overview(self) -> dict:
+        """The Observatory ``wire`` source: WIRE_FIELDS counters + the
+        connection-pool gauges (flat ring keys ``wire_<field>``)."""
+        return {**self.counters, **self.gauges()}
+
+    def attach(self, observatory) -> "WireListener":
+        observatory.add_source("wire", self.overview)
+        return self
+
+    def bench_row(self, elapsed_s: float,
+                  reconnect_recovery_s: float = -1.0) -> dict:
+        """A bench/soak tail row carrying the wire regression keys
+        tools/bench_diff.py compares (``wire_cmds_per_s`` higher-is-
+        better; ``wire_shed_rate`` / ``wire_reconnect_recovery_s``
+        lower-is-better)."""
+        c = self.counters
+        swept = c["swept_rows"]
+        placed = c["credit_ok"] + c["credit_slow"]
+        return {
+            "value": placed / max(elapsed_s, 1e-9),
+            "wire_cmds_per_s": placed / max(elapsed_s, 1e-9),
+            "wire_shed_rate": c["credit_shed"] / max(1, swept),
+            "wire_reconnect_recovery_s": reconnect_recovery_s,
+            "wire_conns": self.gauges()["conns"],
+            "wire_swept_rows": swept,
+            "elapsed_s": elapsed_s,
+        }

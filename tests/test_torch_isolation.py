@@ -52,7 +52,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, ra_tpu_torch, ra_tpu_torch.engine, "
             "ra_tpu_torch.convert, ra_tpu_torch.ops.pallas_quorum, "
             "ra_tpu_torch.ops.commit_phase, ra_tpu_torch.engine.durable, "
-            "ra_tpu_torch.wal_probe, ra_tpu_torch.models\n"
+            "ra_tpu_torch.wal_probe, ra_tpu_torch.models, "
+            "ra_tpu_torch.ingress, ra_tpu_torch.wire, "
+            "ra_tpu_torch.wire.soak\n"
             "ra_tpu_torch.LockstepEngine, ra_tpu_torch.open_engine\n"
             "from ra_tpu_torch import native\n"
             "assert not native.IO._loaded   # no g++ at import\n"

@@ -484,8 +484,9 @@ def test_cuda_engine_refuses_a_fifo_its_kernel_cannot_fold(monkeypatch):
     """Built for the card, an engine refuses at once a FIFO the fold
     kernel cannot fold (more than 32 checkout slots, or a capacity past
     the shared-memory ring that is no power of two), with the limits in
-    the message, and warns for any capacity that is no power of two; on
-    the CPU it takes them all.  (The device is faked: the check comes
+    the message; it takes any other capacity without a warning, and one
+    that is no power of two selects between the fast and the in-order
+    fold on the card as on the CPU; on the CPU it takes them all.  (The device is faked: the check comes
     before anything is allocated.)"""
     from ra_tpu_torch.engine import lockstep as port_lockstep
     monkeypatch.setattr(port_lockstep, "resolve_device",
@@ -497,14 +498,16 @@ def test_cuda_engine_refuses_a_fifo_its_kernel_cannot_fold(monkeypatch):
                                              "power of two"):
             port_lockstep.LockstepEngine(m, 4, 3)
     cuda = torch.device("cuda")
-    for q in (12, fifo_fold.MAX_SHARED_RING):
-        with pytest.warns(RuntimeWarning, match="not a power of two"):
-            JitFifoMachine(q, 4, 40).check_device(cuda)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
+        for q in (12, fifo_fold.MAX_SHARED_RING):
+            m = JitFifoMachine(q, 4, 40)
+            m.check_device(cuda)
+            assert m.fast_fold_on_card
         for m in (JitFifoMachine(2 ** 15, 8, 40), JitFifoMachine(256, 32, 4),
                   JitKvMachine(20000)):
             m.check_device(cuda)
+            assert not m.fast_fold_on_card
         JitFifoMachine(fifo_fold.MAX_SHARED_RING + 2, 33, 2).check_device(
             CPU)
 
@@ -643,3 +646,42 @@ def test_batch_apply_of_lane_only_state_on_card(cuda_device, name):
         assert_tree_equal(_on(got, CPU), jax.tree.map(
             lambda x: x.numpy(), want), name)
         st = want
+
+
+@pytest.mark.cuda
+def test_fifo_q12_batch_fold_on_card_matches_reference(cuda_device):
+    """A FIFO capacity that is no power of two, heads and tickets at the
+    int32 edge (``chip_smoke.fifo_hard_state``), clean windows (enqueue,
+    settled dequeue, noop): the card's batch fold keeps the reference's
+    choice of fold, and every leaf equals the reference's, window after
+    window."""
+    from chip_smoke import fifo_hard_state
+    ref_m = RefFifo(12, 5, 3)
+    port_m = JitFifoMachine(12, 5, 3)
+    assert port_m.fast_fold_on_card
+    batch = jax.jit(ref_m.jit_apply_batch)
+    n, p, a = 129, 3, 40
+    rng = np.random.default_rng(12)
+    lanes = fifo_hard_state(rng, n, 12, 5, 3)
+    rs = {k: np.ascontiguousarray(np.broadcast_to(
+        v[:, None], (n, p) + v.shape[1:])) for k, v in lanes.items()}
+    for w in range(4):
+        cmd = np.stack([rng.integers(0, 3, (n, a)),
+                        rng.integers(0, 1000, (n, a)),
+                        np.zeros((n, a), np.int64)], -1).astype(np.int32)
+        cmds = np.broadcast_to(cmd[:, None], (n, p, a, 3))
+        mask = rng.random((n, p, a)) < 0.9
+        index = np.ones((n, p, a), np.int32)
+        want = batch({"index": jnp.asarray(index), "term": jnp.int32(1)},
+                     jnp.asarray(cmds), jnp.asarray(mask),
+                     jax.tree.map(jnp.asarray, rs))
+        before = fifo_fold.LAUNCHES
+        got = port_m.jit_apply_batch(
+            {"index": torch.from_numpy(index).to(cuda_device),
+             "term": torch.ones((), dtype=torch.int32, device=cuda_device)},
+            torch.from_numpy(np.ascontiguousarray(cmds)).to(cuda_device),
+            torch.from_numpy(mask).to(cuda_device),
+            {k: torch.from_numpy(v).to(cuda_device) for k, v in rs.items()})
+        assert fifo_fold.LAUNCHES == before + 1
+        assert_tree_equal(_on(got, CPU), want, f"window {w}")
+        rs = {k: np.array(v) for k, v in want.items()}
