@@ -137,6 +137,25 @@ non-zero (there is no CPU path and no fallback to a plain version):
              row, the device's idle share over the rung's last 3 waves
              (profiled), and the dedup fold's device time at the path's
              window
+  tune_path  bench.py's durable rung with RA_TPU_BENCH_AUTOTUNE=1 at
+             10,000 x 5 (tune_loop): a TelemetrySampler, Observatory,
+             SloEngine (default objectives) and AutoTuner (K from 1 up to
+             64, ticks every 0.2 s, the block restaged when K moves) over
+             open_engine with durable_path's shards; every decision and
+             freeze, each K's committed and sent cmds/s, each capture's ms,
+             the last window's phase shares and the verdicts, busy and idle
+             from a torch_profile window of 3 dispatches at the converged K;
+             held: the knob stamps, the shards' group-commit wait, a freeze
+             under a DiskFaultPlan, the committed total against the logs,
+             the WAL's accepted rows and the counters, the Prometheus round
+             trip
+  reads_path bench.py --reads at its defaults (reads_loop): JitKvMachine(64),
+             1,024 x 3, durable on 2 WAL shards, K = 4, 8 commands and 16
+             reads a lane, read share 0.9, 3 s a section; read and write
+             rates and p99s, reads a dispatch, the per-call consistent_read
+             baseline, both SLO verdicts; held: no capture over the
+             measured sections, every replica's KV state and every served
+             read against the lanes' logs rebuilt from the WAL
 
 The fold_kernels phase also holds the stream decoder (random, append-only,
 int32-edge and invalid-op windows, a ring of 5 and one of 30,000), and a
@@ -145,7 +164,8 @@ card equal the CPU's at the int32 edge; machine_parity also runs the
 stream and the dedup counter.
 
 then the kernels summary line (launches on every path, each counted from
-0 just before it: main, superstep, durable, fifo, kv, stream and wire;
+0 just before it: main, superstep, durable, fifo, kv, stream, wire, tune
+and reads;
 "launches" is
 the count on the kernel's own path), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -543,7 +563,7 @@ def phase_superstep_parity(cpm, LockstepEngine, CounterMachine,
         cpu = LockstepEngine(CounterMachine(), N, P, device="cpu", **kw)
         engines = (graph, eager, cpu)
         rng = np.random.default_rng(N + P)
-        captures0 = devicewatch.WATCH.counters["graph_captures"]
+        captures0 = devicewatch.WATCH.counters["compiles"]
         failed, held, clipped = [], None, 0
         dispatches = 5
         for d in range(dispatches):
@@ -599,7 +619,7 @@ def phase_superstep_parity(cpm, LockstepEngine, CounterMachine,
         graphs = list(graph._graphs._graphs.values())
         captured = [g.captured_launches["commit_phase"] for g in graphs]
         if captured != [K, K] or \
-                devicewatch.WATCH.counters["graph_captures"] - captures0 \
+                devicewatch.WATCH.counters["compiles"] - captures0 \
                 != 2:
             raise AssertionError(f"want two graphs (without and with reads) "
                                  f"of {K} captured commit_phase launches "
@@ -666,8 +686,8 @@ def phase_superstep_path(pq, cpm, LockstepEngine, CounterMachine,
     committed1 = eng.committed_total()
     watch1, sites1 = dict(devicewatch.WATCH.counters), ledger(devicewatch)
     pc = {k: eng.pipeline_counters[k] - pc0[k] for k in pc0}
-    captures = watch1["graph_captures"] - watch0["graph_captures"]
-    recaptures = watch1["graph_recaptures"] - watch0["graph_recaptures"]
+    captures = watch1["compiles"] - watch0["compiles"]
+    recaptures = watch1["recompiles"] - watch0["recompiles"]
     if captures or recaptures or pc["superstep_dispatches"] != timed:
         raise AssertionError(f"timed window: {captures} graph captures, "
                              f"{recaptures} re-captures, "
@@ -2728,6 +2748,605 @@ def phase_wire_path(dev, n_lanes: int = 1024, waves: int = 12,
     return {"host": launches}
 
 
+# -- the observability and control loop: tune_path and reads_path -----------
+
+def kernel_modules() -> dict:
+    from ra_tpu_torch.ops import commit_phase, fifo_fold, pallas_quorum, \
+        slot_fold
+    return {"evaluate_quorum": pallas_quorum, "commit_phase": commit_phase,
+            "slot_fold": slot_fold, "fifo_fold": fifo_fold}
+
+
+def phase_shares(rates: dict) -> dict:
+    """Each latency phase's share of one Observatory window's phase time,
+    from ``window_rates`` of the monotone ``total_ms`` counters
+    (``commit_e2e`` spans the others and is left out, as the autotuner
+    leaves it out)."""
+    pre, suf = "engine_phases_", "_total_ms"
+    ms = {k[len(pre):-len(suf)]: v for k, v in rates.items()
+          if k.startswith(pre) and k.endswith(suf) and v > 0}
+    ms.pop("commit_e2e", None)
+    total = sum(ms.values())
+    return {p: v / total for p, v in sorted(ms.items())} if total else {}
+
+
+def prometheus_round_trip(obs, parse_prometheus) -> dict:
+    """A fresh snapshot's Prometheus text, parsed, against the ring's
+    newest flattening: every flat key back with its value, and no other
+    unlabelled name but the commit-lag histogram's count."""
+    snap = obs.snapshot()
+    parsed = parse_prometheus(obs.prometheus(snap))
+    newest = obs.ring()[-1][1]
+    bad = {k: (v, parsed.get(("ra_tpu_" + k, ""))) for k, v in newest.items()
+           if parsed.get(("ra_tpu_" + k, "")) != v}
+    extra = {n for n, lbl in parsed if not lbl} - \
+        {"ra_tpu_" + k for k in newest} - {"ra_tpu_engine_commit_lag_count"}
+    if bad or extra:
+        raise AssertionError(f"Prometheus round trip: {len(bad)} values "
+                             f"differ ({list(bad.items())[:3]}), extra "
+                             f"{sorted(extra)[:3]}")
+    return {"keys": len(newest), "lines": len(parsed)}
+
+
+def tune_loop(dev, wal_dir: str, *, n_lanes: int = 10_000, cmds: int = 128,
+              seconds: float = 20.0, k_hi: int = 64,
+              shards: int | None = None,
+              profile_dir: str | None = None) -> dict:
+    """``bench.py``'s durable rung with ``RA_TPU_BENCH_AUTOTUNE=1`` on the
+    port: ``CounterMachine``, ``n_lanes`` x 5, ``cmds`` commands a lane a
+    step, ring 1,024, apply window cmds + 2, ``open_engine`` with
+    ``shards`` WAL shards (``durable_path``'s: min(4, cores / 2)), sync
+    mode 1 and ``max_pending = max(8, 4 K)`` at the starting K = 1.  A
+    ``TelemetrySampler`` at its default cadence feeds
+    ``Observatory.for_engine``; an ``SloEngine`` with the default
+    objectives and an ``AutoTuner`` on the engine's durability bridge,
+    ``cmds_per_step`` pinned and ``superstep_k`` in (1, ``k_hi``), tick
+    every 0.2 s of a ``DispatchAheadDriver`` loop that restages its block
+    when K moves (``bench.py``'s restage).  The tuner's cooldown and
+    breach windows are 1 and its incident freeze 0, as ``bench.py``'s
+    mesh rung sets them, and its capture freeze 1 s.
+
+    Held: after each restage the first dispatch of the new K leaves
+    ``overview()["pipeline"]["superstep_k"]`` at that K, and every K
+    dispatched is one the tuner decided (no silent turns); after every
+    tick each shard's group-commit wait equals the tuner's knob; a
+    ``DiskFaultPlan`` installed for two ticks freezes the tuner (one
+    ``tune.freeze``, no decision); after drain, flush and settle the
+    committed total equals every leader's log, the commands the WAL
+    records as accepted, and each member's counter, and it equals lanes x
+    cmds x inner steps where the ring clipped nothing; the last
+    snapshot's Prometheus text parses back to the ring's newest
+    flattening.  With ``profile_dir``, three dispatches at the converged
+    K are profiled with ``trace.torch_profile`` (device busy and idle)."""
+    from ra_tpu_torch import trace
+    from ra_tpu_torch.autotune import AutoTuner
+    from ra_tpu_torch.blackbox import RECORDER
+    from ra_tpu_torch.devicewatch import WATCH
+    from ra_tpu_torch.engine import DispatchAheadDriver
+    from ra_tpu_torch.engine.durable import open_engine
+    from ra_tpu_torch.log import faults
+    from ra_tpu_torch.models import CounterMachine
+    from ra_tpu_torch.slo import SloEngine
+    from ra_tpu_torch.telemetry import (Observatory, TelemetrySampler,
+                                        parse_prometheus)
+    N, P, k0 = n_lanes, 5, 1
+    shards = shards or max(1, min(4, (os.cpu_count() or 2) // 2))
+    shutil.rmtree(wal_dir, ignore_errors=True)
+    eng = open_engine(CounterMachine(), wal_dir, N, P, wal_shards=shards,
+                      sync_mode=1, max_pending=max(8, 4 * k0),
+                      ring_capacity=1024, max_step_cmds=cmds,
+                      apply_window=cmds + 2, device=dev)
+    sampler = TelemetrySampler(eng)
+    obs = Observatory.for_engine(eng, sampler=sampler)
+    slo = SloEngine(obs)
+    tuner = AutoTuner(slo, obs, durability=eng._dur,
+                      bounds={"cmds_per_step": (cmds, cmds),
+                              "superstep_k": (1, k_hi)},
+                      knobs={"superstep_k": k0, "cmds_per_step": cmds},
+                      cooldown_windows=1, breach_windows=1,
+                      incident_freeze_s=0.0, compile_freeze_s=1.0)
+    drv = DispatchAheadDriver(eng, max_in_flight=2)
+    n_host = np.full(N, cmds, np.int32)
+    p_host = np.ones((N, cmds, 1), np.int32)
+
+    def blocks(k):
+        return (np.broadcast_to(n_host, (k, N)),
+                np.broadcast_to(p_host, (k,) + p_host.shape))
+
+    cur = k0
+    nb, pb = blocks(cur)
+    staged = [None]             # K of the block the driver holds staged
+    sent_steps = [0]            # inner steps of every dispatched block
+    dispatched: list = []       # each new K's first dispatch
+    decided = {k0}              # K values the tuner set
+    captures: list = []
+    watch = dict(WATCH.counters)
+
+    def submit():
+        drv.submit(nb, pb)
+        k, staged[0] = staged[0], cur
+        if k is None:
+            return
+        sent_steps[0] += k
+        c = WATCH.counters
+        if c["compiles"] != watch["compiles"]:
+            captures.append({"k": k, "captures": c["compiles"] -
+                             watch["compiles"], "recaptures":
+                             c["recompiles"] - watch["recompiles"],
+                             "ms": c["compile_ms"] - watch["compile_ms"]})
+            watch.update(c)
+        if not dispatched or dispatched[-1]["k"] != k:
+            # the first dispatch of a new K: its stamp, and its decision
+            stamp = eng.overview()["pipeline"]["superstep_k"]
+            if stamp != k or k not in decided:
+                raise AssertionError(f"tune_path: dispatched K = {k}, "
+                                     f"stamped {stamp}, decided {decided}")
+            dispatched.append({"k": k, "knob": tuner.knobs["superstep_k"],
+                               "stamp": stamp})
+
+    for _ in range(2):
+        submit()
+    drv.drain()
+    k, staged[0] = staged[0], None
+    sent_steps[0] += k
+    sampler.drain()
+    decisions: list = []
+    rate_by_k: dict = {}        # K -> [committed, commands sent, seconds]
+    last = {"t": None, "done": None, "sent": 0}
+
+    def observe(now: float) -> None:
+        lc = drv.last_committed
+        sent = N * cmds * sent_steps[0]
+        if lc is not None:
+            done = int(lc.astype(np.int64).sum())
+            if last["done"] is not None:
+                acc = rate_by_k.setdefault(cur, [0, 0, 0.0])
+                acc[0] += done - last["done"]
+                acc[1] += sent - last["sent"]
+                acc[2] += now - last["t"]
+            last["done"] = done
+        last["t"], last["sent"] = now, sent
+        obs.snapshot()
+        d = tuner.tick()
+        if d is not None:
+            decisions.append({k: d[k] for k in ("knob", "old", "new",
+                                                "phase", "objective",
+                                                "tick")})
+            if d["knob"] == "superstep_k":
+                decided.add(d["new"])
+        want = tuner.knobs["wal_max_batch_interval_ms"]
+        have = [w.max_batch_interval_ms for w in eng._dur.wals]
+        if any(v != want for v in have):
+            raise AssertionError(f"tune_path: shard intervals {have} != "
+                                 f"the knob {want}")
+
+    t0 = time.perf_counter()
+    t_obs = t0
+    while time.perf_counter() - t0 < seconds:
+        if tuner.knobs["superstep_k"] != cur:
+            # the restage between dispatches; the first window at the
+            # new K holds its capture, so its rate is not kept
+            cur = tuner.knobs["superstep_k"]
+            nb, pb = blocks(cur)
+            last["done"] = None
+        submit()
+        now = time.perf_counter()
+        if now - t_obs >= 0.2:
+            t_obs = now
+            observe(now)
+    tuned_s = time.perf_counter() - t0
+    shares = phase_shares(obs.window_rates())
+    verdicts = {name: o["verdict"]
+                for name, o in slo.evaluate()["objectives"].items()}
+    # let a capture freeze run out and take one tick, so that the probe
+    # below starts from an unfrozen tuner (a freeze is recorded when it
+    # begins)
+    time.sleep(max(0.0, tuner._compile_quiet_until - time.time()) + 0.05)
+    observe(time.perf_counter())
+    # two ticks under an installed DiskFaultPlan (a quiet one: no fault
+    # is injected, being installed is what freezes)
+    f0 = sum(1 for e in RECORDER.events("tune") if e[1] == "tune.freeze")
+    d0 = len(tuner.decisions)
+    faults.install_plan(faults.DiskFaultPlan(seed=1))
+    try:
+        frozen = []
+        for _ in range(2):
+            submit()
+            obs.snapshot()
+            frozen.append(tuner.tick())
+            frozen.append(tuner.overview()["freeze_reason"])
+    finally:
+        faults.clear_plan()
+    freezes = sum(1 for e in RECORDER.events("tune")
+                  if e[1] == "tune.freeze") - f0
+    if frozen != [None, "disk_fault_plan_active"] * 2 or freezes != 1 or \
+            len(tuner.decisions) != d0:
+        raise AssertionError(f"tune_path: under a DiskFaultPlan {frozen}, "
+                             f"{freezes} freezes")
+    drv.drain()
+    k, staged[0] = staged[0], None
+    sent_steps[0] += k
+    prof_out = {}
+    if profile_dir is not None:
+        from ra_tpu_torch.step_profile import device_rows
+        torch.cuda.synchronize()
+        s0 = sent_steps[0]
+        with trace.torch_profile(profile_dir) as prof:
+            t1 = time.perf_counter()
+            for _ in range(3):
+                submit()
+            drv.drain()
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t1
+        k, staged[0] = staged[0], None
+        sent_steps[0] += k
+        groups = device_rows(prof)
+        busy_ms = sum(e.self_device_time_total for g in ("kernels", "copies")
+                      for e in groups[g]) / 1e3
+        prof_out = {"profiled_k": cur, "profiled_dispatches": 3,
+                    "profiled_inner_steps": sent_steps[0] - s0,
+                    "traced_s": traced_s, "device_busy_ms": busy_ms,
+                    "device_idle_share": 1.0 - busy_ms / (traced_s * 1e3),
+                    "commit_phase_executions": sum(
+                        e.count for e in groups["kernels"]
+                        if "commit_phase_kernel" in e.key)}
+    eng._dur.flush_all()
+    settle_steps = settle_durable(eng, cmds)
+    sampler.drain()
+    prom = prometheus_round_trip(obs, parse_prometheus)
+    # exact: the leaders' logs, the WAL's accepted rows and every member's
+    # counter all equal the committed total
+    lane = np.arange(N)
+    st = eng.state
+    lead = st.leader_slot.cpu().numpy()
+    per_lane = eng.committed_per_lane().astype(np.int64)
+    tail = st.last_index.cpu().numpy()[lane, lead].astype(np.int64)
+    counter = eng.machine_states()
+    committed = int(per_lane.sum())
+    ctr, steps = eng._dur.counters, eng._dur.step_seq
+    wal_rows = (ctr["readback_bytes"] - steps * (16 * N + 4 * (shards - 1))) \
+        // 4
+    sent = N * cmds * sent_steps[0]
+    if not (per_lane == tail).all() or not \
+            (counter == per_lane[:, None]).all() or wal_rows != committed \
+            or committed > sent:
+        raise AssertionError(f"tune_path: committed {committed}, WAL rows "
+                             f"{wal_rows}, sent {sent}")
+    rates = {k: {"committed_cmds_per_s": v[0] / v[2],
+                 "sent_cmds_per_s": v[1] / v[2], "seconds": v[2]}
+             for k, v in rate_by_k.items() if v[2] > 0}
+    out = {"lanes": N, "members": P, "cmds_per_step": cmds,
+           "wal_shards": shards, "sync_mode": 1, "max_pending": max(8, 4 * k0),
+           "tuner": {"cooldown_windows": 1, "breach_windows": 1,
+                     "incident_freeze_s": 0.0, "compile_freeze_s": 1.0,
+                     "bounds": tuner.bounds, "tick_s": 0.2},
+           "tuned_s": tuned_s, "decisions": decisions,
+           "ticks": tuner.ticks, "freezes": tuner.freezes,
+           "converged_k": cur, "k_dispatched": dispatched,
+           "rates_by_k": rates, "captures": captures,
+           "last_window_phase_shares": shares, "slo_verdicts": verdicts,
+           "disk_fault_freeze": {"ticks": 2, "freeze_events": freezes,
+                                 "decisions": 0},
+           "frozen_ticks": 2, "inner_steps_sent": sent_steps[0],
+           "settle_steps": settle_steps, "sent_cmds": sent,
+           "committed": committed, "accepted_share": committed / sent,
+           "committed_exact": True, "committed_equals_sent":
+           committed == sent, "prometheus_round_trip": prom,
+           "autotune": tuner.overview(), **prof_out}
+    obs.close()
+    eng.close()
+    shutil.rmtree(wal_dir, ignore_errors=True)
+    return out
+
+
+def phase_tune_path(dev, seconds: float = 30.0, k_hi: int = 64) -> dict:
+    """``tune_loop`` at full width: 10,000 x 5, 128 commands a lane a
+    step, its WAL under build/; the launches of every kernel counted from
+    0 just before."""
+    mods = kernel_modules()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = tune_loop(dev, str(WAL_ROOT / "tune"), seconds=seconds, k_hi=k_hi,
+                    profile_dir=str(WAL_ROOT / "tune_profile"))
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    if launches["commit_phase"] == 0 or launches["evaluate_quorum"] or \
+            launches["slot_fold"] or launches["fifo_fold"]:
+        raise AssertionError(f"tune_path launches {launches}")
+    emit({"phase": "tune_path", "seconds": time.perf_counter() - t0,
+          "host_launches": launches, **out})
+    return launches
+
+
+def wal_logs(data_dir: str, scan, decode, n_lanes: int) -> list:
+    """Every lane's log rebuilt from the engine WAL records under
+    ``data_dir`` (steps in order, a lane slice a shard): a list of
+    ``[n_entries, C]`` arrays, a noop an all-zero row.  No record may
+    truncate (the paths hold no election)."""
+    steps: dict = {}
+    for root, _dirs, names in os.walk(data_dir):
+        tables: dict = {}
+        for name in sorted(n for n in names if n.endswith(".wal")):
+            scan(os.path.join(root, name), tables)
+        for s, (_term, blk) in tables.get("__engine__", {}).items():
+            steps.setdefault(s, []).append(decode(blk))
+    logs: list = [[] for _ in range(n_lanes)]
+    tails = np.zeros(n_lanes, np.int64)
+    for s in sorted(steps):
+        for lane_lo, hi, n_app, _n_acc, rows in steps[s]:
+            for i in np.nonzero(n_app)[0]:
+                lane = lane_lo + int(i)
+                if int(hi[i]) - int(n_app[i]) != tails[lane]:
+                    raise AssertionError(f"WAL step {s} lane {lane} "
+                                         "truncates its log")
+                logs[lane].append(rows[i, :n_app[i]])
+                tails[lane] = hi[i]
+    c = next((b.shape[1] for lg in logs for b in lg), 1)
+    return [np.concatenate(lg) if lg else np.zeros((0, c), np.int32)
+            for lg in logs]
+
+
+def graph_keys(eng) -> list:
+    """The shape keys of an engine's captured graphs (none on the CPU)."""
+    return [] if eng._graphs is None else list(eng._graphs._graphs)
+
+
+def reads_loop(dev, wal_dir: str, *, lanes: int = 1024, members: int = 3,
+               seconds: float = 3.0, read_share: float = 0.9, kr: int = 16,
+               cmds: int = 8, superstep_k: int = 4, seed: int = 0) -> dict:
+    """``bench.py --reads`` at its defaults on the port: ``JitKvMachine(64)``,
+    ``lanes`` x ``members``, durable with 2 WAL shards, K = 4, 8 commands
+    and 16 reads a lane, lease TTL 8, read share 0.9, 2 x lanes rows a
+    wave over 4,096 sessions through the ingress plane (puts and gets in
+    the same dispatches), ``seconds`` per measured section: the per-call
+    ``consistent_read`` baseline, a write-only section at half the time,
+    the mixed run.  The SLO engine stamps verdicts only (not wired into
+    the ladder, as in ``bench.py``).
+
+    Held: no graph capture over the measured sections; every replica's
+    final KV state equals a plain model of the puts in commit order (the
+    lanes' logs rebuilt from the WAL, whose puts are the accepted puts in
+    submission order); every served read returns the newest put to its
+    key at or below its watermark."""
+    from ra_tpu_torch.devicewatch import WATCH
+    from ra_tpu_torch.engine.durable import decode_block, open_engine
+    from ra_tpu_torch.ingress import IngressPlane
+    from ra_tpu_torch.log.wal import scan_wal_file
+    from ra_tpu_torch.models import JitKvMachine
+    from ra_tpu_torch.slo import SloEngine
+    from ra_tpu_torch.telemetry import Observatory
+    wave_rows = 2 * lanes
+    n_w = max(1, int(round(wave_rows * (1.0 - read_share))))
+    n_r = max(1, wave_rows - n_w)
+    n_keys = 64
+    rng = np.random.default_rng(seed)
+    shutil.rmtree(wal_dir, ignore_errors=True)
+    eng = open_engine(JitKvMachine(n_keys=n_keys), wal_dir, lanes, members,
+                      wal_shards=2,
+                      ring_capacity=max(64, superstep_k * cmds * 4),
+                      max_step_cmds=cmds, max_step_reads=kr, lease_ttl=8,
+                      device=dev)
+    plane = IngressPlane(eng, superstep_k=superstep_k, window_s=0.001,
+                         soft_credit=1 << 20, hard_credit=1 << 20)
+    obs = Observatory.for_engine(eng)
+    slo = SloEngine(obs)
+    sess = plane.directory.connect_bulk(4096, key="bench-reads")
+    lane_of = plane.directory.lane
+    write_waves: collections.deque = collections.deque()
+    write_lats: list = []
+    released = [0]
+
+    def on_commit(handles) -> None:
+        released[0] += len(handles)
+        t = time.perf_counter()
+        while write_waves and write_waves[0][0] <= released[0]:
+            write_lats.append(t - write_waves.popleft()[1])
+
+    plane.on_block_committed = on_commit
+    stride = 1 << 20
+    wave_t = np.zeros(1 << 16, np.float64)
+    wave_keys: list = []
+    read_lats: list = []
+    served: list = []           # (lane, key, watermark, reply) per served read
+
+    def on_reads(handles, seqnos, statuses, wms, payloads) -> None:
+        now = time.perf_counter()
+        ok = np.asarray(statuses) == 0
+        if ok.any():
+            s = np.asarray(seqnos)[ok]
+            w, i = s // stride, s % stride
+            read_lats.extend((now - wave_t[w]).tolist())
+            keys = np.empty(len(s), np.int64)
+            for wv in np.unique(w):
+                at = w == wv
+                keys[at] = wave_keys[wv][i[at]]
+            served.append((lane_of[np.asarray(handles)[ok]], keys,
+                           np.asarray(wms)[ok], np.asarray(payloads)[ok]))
+
+    plane.on_reads_done = on_reads
+    puts: list = []             # (lanes, payload rows) of accepted puts
+    wave_idx = [0]
+    last_snap = [0.0]
+
+    def wave(do_reads: bool) -> None:
+        wh = sess[rng.choice(len(sess), size=n_w, replace=False)]
+        pay = np.zeros((n_w, 4), np.int32)
+        pay[:, 0] = 1
+        pay[:, 1] = rng.integers(0, n_keys, n_w)
+        pay[:, 2] = rng.integers(0, 1 << 20, n_w)
+        st = plane.submit_auto(wh, pay)
+        ok = st <= 1
+        puts.append((lane_of[wh[ok]], pay[ok]))
+        write_waves.append((plane.counters["accepted"], time.perf_counter()))
+        if do_reads:
+            rh = sess[rng.choice(len(sess), size=n_r, replace=False)]
+            q = np.zeros((n_r, 2), np.int32)
+            q[:, 0] = 1
+            q[:, 1] = rng.integers(0, n_keys, n_r)
+            wave_keys.append(q[:, 1])
+            wave_t[wave_idx[0]] = time.perf_counter()
+            plane.submit_reads(rh, wave_idx[0] * stride + np.arange(n_r), q)
+        else:
+            wave_keys.append(None)
+        wave_idx[0] += 1
+        plane.pump(force=True)
+        now = time.perf_counter()
+        if now - last_snap[0] > 0.1:
+            last_snap[0] = now
+            obs.snapshot()
+
+    # warm-up as bench.py's, plus one write-only wave with no read
+    # pending: on the card a dispatch without a read schedule is a graph
+    # of its own (the reference runs both through one executable)
+    for _ in range(3):
+        wave(True)
+    plane.settle(timeout=120.0)
+    wave(False)
+    plane.settle(timeout=120.0)
+    eng.consistent_read([0])
+    n_calls = 5
+    t0 = time.perf_counter()
+    for i in range(n_calls):
+        eng.consistent_read([i % lanes])
+    percall_s = (time.perf_counter() - t0) / n_calls
+    eng.phases.reset_reservoirs()
+    write_lats.clear()
+    read_lats.clear()
+    dw0 = dict(WATCH.counters)
+    keys0 = graph_keys(eng)
+    t_w0 = time.perf_counter()
+    while time.perf_counter() - t_w0 < seconds * 0.5:
+        wave(False)
+    plane.settle(timeout=120.0)
+
+    def p99(xs):
+        xs = sorted(xs)
+        return 1000 * xs[min(len(xs) - 1, int(len(xs) * 0.99))] \
+            if xs else -1.0
+
+    write_only_p99_ms = p99(write_lats)
+    eng.phases.reset_reservoirs()
+    write_lats.clear()
+    rc0 = dict(plane.read_counters)
+    wrote0 = plane.counters["accepted"]
+    t_mix = time.perf_counter()
+    while time.perf_counter() - t_mix < seconds:
+        wave(True)
+    plane.settle(timeout=120.0)
+    elapsed = time.perf_counter() - t_mix
+    obs.snapshot()
+    verdicts = {name: o["verdict"]
+                for name, o in slo.evaluate()["objectives"].items()}
+    dw = WATCH.counters
+    recaptures = dw["recompiles"] - dw0["recompiles"]
+    captures = dw["compiles"] - dw0["compiles"]
+    rc = plane.read_counters
+    served_n = rc["served"] - rc0["served"]
+    blocks = max(1, rc["blocks_built"] - rc0["blocks_built"])
+    read_cmds_per_s = served_n / max(elapsed, 1e-9)
+    out = {"lanes": lanes, "members": members, "cmds_per_step": cmds,
+           "read_window": kr, "superstep_k": superstep_k, "wal_shards": 2,
+           "lease_ttl": 8, "read_share": read_share, "wave_rows": wave_rows,
+           "sessions": len(sess), "seconds_per_section": seconds,
+           "read_cmds_per_s": read_cmds_per_s,
+           "read_p99_ms": p99(read_lats),
+           "read_e2e_phase_p99_ms":
+           eng.phases.overview()["read_e2e"]["p99_ms"],
+           "write_cmds_per_s": (plane.counters["accepted"] - wrote0)
+           / max(elapsed, 1e-9),
+           "write_p99_ms": p99(write_lats),
+           "write_only_p99_ms": write_only_p99_ms,
+           "reads_per_dispatch": (rc["block_rows"] - rc0["block_rows"])
+           / blocks,
+           "read_served": served_n,
+           "read_shed": rc["shed"] - rc0["shed"],
+           "read_stale_refused": rc["stale_refused"] - rc0["stale_refused"],
+           "percall_read_ms": 1000 * percall_s,
+           "read_plane_speedup_vs_percall": read_cmds_per_s * percall_s,
+           "slo": verdicts,
+           "slo_read_verdict": verdicts.get("read_p99_ms", "no_data"),
+           "slo_write_verdict": verdicts.get("commit_p99_ms", "no_data"),
+           "steady_state_captures": captures,
+           "steady_state_recaptures": recaptures}
+    if recaptures or captures:
+        raise AssertionError(
+            f"reads_path: {captures} captures, {recaptures} re-captures in "
+            f"the measured sections: graphs {keys0} -> {graph_keys(eng)}")
+    # the oracle: logs from the WAL, puts in commit order
+    eng._dur.flush_all()
+    logs = wal_logs(wal_dir, scan_wal_file, decode_block, lanes)
+    want_puts = [[] for _ in range(lanes)]
+    for ls, rows in puts:
+        for lane, row in zip(ls.tolist(), rows):
+            want_puts[lane].append(row)
+    p_lane, p_key, p_idx, p_val = [], [], [], []
+    for lane, lg in enumerate(logs):
+        is_put = lg[:, 0] == 1
+        got = lg[is_put]
+        want = np.array(want_puts[lane], np.int32).reshape(-1, 4)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"reads_path: lane {lane}'s log holds "
+                                 f"{len(got)} puts, {len(want)} accepted")
+        p_lane.append(np.full(len(got), lane, np.int64))
+        p_key.append(got[:, 1].astype(np.int64))
+        p_idx.append(np.nonzero(is_put)[0] + 1)  # log indices from 1
+        p_val.append(got[:, 2])
+    # puts by (lane, key) cell, in log order within a cell
+    cell = np.concatenate(p_lane) * n_keys + np.concatenate(p_key)
+    order = np.lexsort((np.concatenate(p_idx), cell))
+    cell = cell[order]
+    pk = cell * (1 << 32) + np.concatenate(p_idx)[order]
+    pv = np.concatenate(p_val)[order]
+    # the plain model: each cell ends at its last put
+    model = np.full(lanes * n_keys, -1, np.int64)
+    last = np.r_[cell[1:] != cell[:-1], True] if len(cell) else cell
+    model[cell[last]] = pv[last]
+    states = eng.machine_states()                # [N, P, n_keys]
+    if not (states == model.reshape(lanes, 1, n_keys)).all():
+        raise AssertionError("reads_path: a replica's KV state differs "
+                             "from the model of its log's puts")
+    # every served read: the newest put to its key at or below its mark
+    r_lane = np.concatenate([s[0] for s in served])
+    r_key = np.concatenate([s[1] for s in served])
+    r_wm = np.concatenate([s[2] for s in served]).astype(np.int64)
+    r_pay = np.concatenate([s[3] for s in served])
+    r_cell = r_lane * n_keys + r_key
+    at = np.searchsorted(pk, r_cell * (1 << 32) + r_wm, side="right") - 1
+    hit = (at >= 0) & (pk[np.maximum(at, 0)] >> 32 == r_cell)
+    want_val = np.where(hit, pv[np.maximum(at, 0)], -1)
+    want_pay = np.stack([(want_val >= 0).astype(np.int32),
+                         want_val.astype(np.int32)], -1)
+    if (r_wm < 0).any() or not np.array_equal(r_pay, want_pay):
+        bad = int((r_pay != want_pay).any(-1).sum())
+        raise AssertionError(f"reads_path: {bad} of {len(r_pay)} served "
+                             "reads differ from the log at their mark")
+    out.update({"oracle_reads_checked": int(len(r_pay)),
+                "oracle_puts": int(sum(len(w) for w in want_puts)),
+                "kv_state_equal_model": True,
+                "reads_equal_log_at_watermark": True})
+    obs.close()
+    eng.close()
+    shutil.rmtree(wal_dir, ignore_errors=True)
+    return out
+
+
+def phase_reads_path(dev) -> dict:
+    """``reads_loop`` at ``bench.py --reads``' defaults, its WAL under
+    build/; the launches of every kernel counted from 0 just before."""
+    mods = kernel_modules()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = reads_loop(dev, str(WAL_ROOT / "reads"))
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    if launches["commit_phase"] == 0 or launches["slot_fold"] == 0 or \
+            launches["evaluate_quorum"] or launches["fifo_fold"]:
+        raise AssertionError(f"reads_path launches {launches}")
+    emit({"phase": "reads_path", "seconds": time.perf_counter() - t0,
+          "host_launches": launches, **out})
+    return launches
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of ra_tpu_torch "
@@ -2799,6 +3418,8 @@ def main() -> int:
                                         dev, args.seed)
     try:
         wire_launches = phase_wire_path(dev)
+        tune_launches = phase_tune_path(dev)
+        reads_launches = phase_reads_path(dev)
     finally:
         shutil.rmtree(WAL_ROOT, ignore_errors=True)
     # launches of each kernel on each path, each counted from 0 just
@@ -2819,6 +3440,8 @@ def main() -> int:
         k["launches_stream_path"] = {mix: v["host"][name]
                                      for mix, v in stream_launches.items()}
         k["launches_wire_path"] = wire_launches["host"][name]
+        k["launches_tune_path"] = tune_launches[name]
+        k["launches_reads_path"] = reads_launches[name]
         if name in folds:
             k["launches"] = folds[name]["host"][name]
             k["executions_profiled"] = folds[name]["profiled_executions"]

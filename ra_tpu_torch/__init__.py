@@ -5,7 +5,8 @@ imports): thousands of co-hosted Raft clusters advanced as one batched
 step on an NVIDIA H100, with the commit quorum in a hand-written Hopper
 kernel and K steps a dispatch replayed as one CUDA graph; in durable mode
 (``open_engine``) commits gate on fsync confirms from a sharded WAL; the
-ingress and wire planes carry client sessions over sockets into it.
+ingress and wire planes carry client sessions over sockets into it; an
+Observatory, an SLO engine and an autotuner watch and steer the loop.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.  Exports are lazy, so ``import ra_tpu_torch`` loads
 nothing but this file and starts no compiler.
@@ -23,6 +24,9 @@ _EXPORTS = {
     "EngineDurability": "ra_tpu_torch.engine.durable",
     "open_engine": "ra_tpu_torch.engine.durable",
     "TelemetrySampler": "ra_tpu_torch.telemetry",
+    "Observatory": "ra_tpu_torch.telemetry",
+    "SloEngine": "ra_tpu_torch.slo",
+    "AutoTuner": "ra_tpu_torch.autotune",
     "CounterMachine": "ra_tpu_torch.models.counter",
     "JitFifoMachine": "ra_tpu_torch.models.jit_fifo",
     "JitKvMachine": "ra_tpu_torch.models.jit_kv",

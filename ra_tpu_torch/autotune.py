@@ -1,0 +1,378 @@
+"""Closed-loop SLO autotuner for the lane-engine pipeline: the port's own
+copy of ``ra_tpu/autotune.py``.
+
+The second half of the loop the Observatory ring was built for: a
+hysteresis-bounded controller that reads the SLO engine's verdicts
+plus the phase attribution's per-window budget shares and adapts the
+pipeline knobs BETWEEN dispatches — never inside one (the controller
+runs on the host at window cadence; the captured step is untouched,
+so the tick path makes no device sync by construction).
+
+Knobs (``TUNABLE_KNOBS``, each stamped in the ``engine_pipeline``
+overview — rule RA07: no silent knob turns):
+
+* ``superstep_k`` — engine rounds fused per dispatch (one CUDA graph).
+  Raised when the window is DISPATCH-BOUND (the ``device_dispatch``/``host_staging``
+  phases own the budget): more fusion amortizes the fixed dispatch
+  cost.  Lowered when fsync-bound and the batch interval is already at
+  its floor: fewer rounds per dispatch shrinks the per-dispatch WAL
+  burst the fsync path must absorb.
+* ``cmds_per_step`` — per-lane batch depth.  Raised on a throughput
+  breach whose latency objectives are green (batching headroom).
+* ``wal_max_batch_interval_ms`` — the WAL group-commit wait budget.
+  Backed off (halved toward 0) when the window is FSYNC-BOUND: a
+  forced group wait on a slow disk only adds confirm latency.
+
+Control discipline:
+
+* **hysteresis** — an objective must breach ``breach_windows``
+  consecutive ticks before any knob moves; one green tick resets the
+  streak.  A single noisy window never turns a knob.
+* **bounded steps** — every move is a factor-of-two (or one halving of
+  the interval), clamped to per-knob bounds; the controller can only
+  walk the knob space, never jump it.
+* **cooldown** — ``cooldown_windows`` ticks after a decision before
+  the next: each move's effect must land in the ring before it can be
+  judged.
+* **hard freeze** — while any transport FaultPlan or DiskFaultPlan is
+  active, or an incident bundle was dumped within
+  ``incident_freeze_s``: a controller must never chase chaos-injected
+  or crash-transient latency with knob turns.  Freeze transitions are
+  recorded (``tune.freeze``).
+
+Every decision is a registered flight-recorder event
+(``tune.decision``) carrying knob, old→new, triggering phase and
+objective — a timeline of the recorder and the ra_top footer can
+always reconstruct "why did K change".
+
+The tuner does not own the dispatch loop: drivers read the live knob
+values from :attr:`AutoTuner.knobs` between dispatches (the bench's
+opt-in fused autotune mode restages its superstep block when K moves,
+and the closed-loop tests drive the same contract);
+``wal_max_batch_interval_ms`` is additionally pushed straight into the
+live WAL shards via ``EngineDurability.set_batch_interval_ms``.  A
+loop that CANNOT apply a knob must freeze it via ``bounds`` (pin lo ==
+hi) — a recorded decision that changes nothing measured would turn
+the knob stamps into lies.
+"""
+from __future__ import annotations
+
+import collections
+import time
+from typing import Callable, Optional
+
+from .blackbox import RECORDER, record
+from .devicewatch import WATCH
+
+#: every knob this controller may turn — rule RA07 requires each to be
+#: stamped in the engine_pipeline overview (telemetry.py engine source)
+TUNABLE_KNOBS = ("superstep_k", "cmds_per_step",
+                 "wal_max_batch_interval_ms")
+
+#: per-knob (lo, hi) clamp — bounded step size means a decision can
+#: only double/halve within these
+DEFAULT_BOUNDS = {
+    "superstep_k": (1, 64),
+    "cmds_per_step": (1, 1024),
+    "wal_max_batch_interval_ms": (0.0, 50.0),
+}
+
+#: phases whose budget dominance reads as DISPATCH-BOUND (fixed
+#: dispatch overhead amortizable by fusion) vs FSYNC-BOUND (durability
+#: syscall path; fusion makes it worse, back off instead)
+DISPATCH_BOUND_PHASES = ("device_dispatch", "host_staging",
+                         "queue_wait", "wal_encode")
+FSYNC_BOUND_PHASES = ("fsync_wait", "confirm_publish")
+
+DEFAULT_COOLDOWN_WINDOWS = 3
+DEFAULT_BREACH_WINDOWS = 2
+DEFAULT_INCIDENT_FREEZE_S = 30.0
+#: decision freeze horizon after the device-plane compile counter
+#: moves: a knob change that triggers a graph capture must not be read
+#: as a latency regression mid-capture — the new graph's warm windows
+#: need to flush through the ring first
+DEFAULT_COMPILE_FREEZE_S = 10.0
+
+
+def default_freeze_guard() -> Optional[str]:
+    """The standard freeze predicate: an INSTALLED DiskFaultPlan, or
+    any live transport FaultPlan that can still inject (``quiet()``
+    plans — all-zero probabilities, partitions healed — do not count:
+    routers keep their plan object after a chaos exercise ends, and
+    mere liveness must not freeze the controller for the rest of the
+    process).  Returns a reason string or None; the incident-freshness
+    half lives in the tuner, which owns the horizon."""
+    from .log import faults
+    if faults.current_plan() is not None:
+        return "disk_fault_plan_active"
+    from .transport.rpc import live_fault_plans
+    if any(not p.quiet() for p in live_fault_plans()):
+        return "transport_fault_plan_active"
+    return None
+
+
+class AutoTuner:
+    """Hysteresis-bounded closed-loop controller over SLO verdicts +
+    phase attribution.  Call :meth:`tick` at window cadence (between
+    dispatches / at snapshot boundaries)."""
+
+    def __init__(self, slo, observatory=None, *, durability=None,
+                 knobs: Optional[dict] = None,
+                 bounds: Optional[dict] = None,
+                 cooldown_windows: int = DEFAULT_COOLDOWN_WINDOWS,
+                 breach_windows: int = DEFAULT_BREACH_WINDOWS,
+                 incident_freeze_s: float = DEFAULT_INCIDENT_FREEZE_S,
+                 compile_freeze_s: float = DEFAULT_COMPILE_FREEZE_S,
+                 freeze_guard: Callable[[], Optional[str]] =
+                 default_freeze_guard,
+                 apply: Optional[dict] = None) -> None:
+        self.slo = slo
+        self.obs = observatory if observatory is not None else slo.obs
+        self.dur = durability
+        self.bounds = {**DEFAULT_BOUNDS, **(bounds or {})}
+        #: live knob values — dispatch loops read these between
+        #: dispatches; seeded from the durability bridge where known
+        self.knobs = {
+            "superstep_k": 1,
+            "cmds_per_step": 32,
+            "wal_max_batch_interval_ms":
+                durability.batch_interval_ms()
+                if durability is not None else 0.0,
+        }
+        if knobs:
+            unknown = set(knobs) - set(TUNABLE_KNOBS)
+            if unknown:
+                raise ValueError(f"unknown knobs: {sorted(unknown)}")
+            self.knobs.update(knobs)
+        self.cooldown_windows = max(0, int(cooldown_windows))
+        self.breach_windows = max(1, int(breach_windows))
+        self.incident_freeze_s = float(incident_freeze_s)
+        self.compile_freeze_s = float(compile_freeze_s)
+        #: compile-storm state: the devicewatch compile count last seen
+        #: (None until the first tick baselines it — warm-up compiles
+        #: that happened before the controller existed are not a storm)
+        self._compiles_seen: Optional[int] = None
+        self._compile_quiet_until = 0.0
+        self._freeze_guard = freeze_guard
+        self._apply_hooks = dict(apply or {})
+        self._breach_streak: dict = {}
+        self._cooldown_left = 0
+        self._frozen_reason: Optional[str] = None
+        #: bounded, like every long-lived record in this repo — a
+        #: controller alternating regimes for days must not grow a
+        #: list (the full decision history is in the flight recorder)
+        self.decisions: collections.deque = collections.deque(maxlen=256)
+        self.ticks = 0
+        self.freezes = 0
+        if self.obs is not None:
+            self.obs.add_source("autotune", self.overview)
+
+    # -- freeze guards -----------------------------------------------------
+
+    def _freeze_reason(self) -> Optional[str]:
+        reason = self._freeze_guard() if self._freeze_guard else None
+        if reason is not None:
+            return reason
+        inc = RECORDER.last_incident()
+        if inc is not None and \
+                time.time() - inc.get("ts", 0.0) < self.incident_freeze_s:
+            return "recent_incident"
+        return self._compile_storm_reason()
+
+    def _compile_storm_reason(self) -> Optional[str]:
+        """Freeze while the device plane is capturing graphs:
+        when the recompile sentinel's compile counter moves between
+        ticks, decisions suspend for ``compile_freeze_s`` — the
+        windows spanning a compile carry its wall time as latency and
+        must not be chased with knob turns.  Host dict reads only (the
+        tick path is RA04-gated)."""
+        seen = WATCH.counters["compiles"]
+        if self._compiles_seen is None:
+            self._compiles_seen = seen
+            return None
+        if seen > self._compiles_seen:
+            self._compiles_seen = seen
+            self._compile_quiet_until = time.time() + self.compile_freeze_s
+            return "compile_storm"
+        if time.time() < self._compile_quiet_until:
+            return "compile_storm"
+        return None
+
+    # -- phase attribution -------------------------------------------------
+
+    def _dominant_phase(self) -> tuple:
+        """The phase owning the largest share of the newest window's
+        budget: per-window deltas of the monotone per-phase
+        ``total_ms`` counters from the ring (the PHASE_FIELDS
+        attribution).  Returns (phase, share) or (None, 0.0)."""
+        rates = self.obs.window_rates()
+        pre, suf = "engine_phases_", "_total_ms"
+        shares = {k[len(pre):-len(suf)]: v for k, v in rates.items()
+                  if k.startswith(pre) and k.endswith(suf) and v > 0}
+        # commit_e2e SPANS the others (submit->confirm covers queue/
+        # encode/fsync/confirm); it is the SLO's latency signal, not a
+        # budget component — attributing to it would always win
+        shares.pop("commit_e2e", None)
+        if not shares:
+            return None, 0.0
+        total = sum(shares.values())
+        phase = max(shares, key=lambda p: shares[p])
+        return phase, shares[phase] / total if total > 0 else 0.0
+
+    # -- decision ----------------------------------------------------------
+
+    def _set(self, knob: str, new, *, phase, objective) -> dict:
+        lo, hi = self.bounds[knob]
+        new = min(hi, max(lo, new))
+        old = self.knobs[knob]
+        decision = {"ts": time.time(), "knob": knob, "old": old,
+                    "new": new, "phase": phase, "objective": objective,
+                    "tick": self.ticks}
+        self.knobs[knob] = new
+        if knob == "wal_max_batch_interval_ms" and self.dur is not None:
+            # live push: the WAL batch threads read the interval per
+            # group, so the change lands at the next batch
+            self.dur.set_batch_interval_ms(new)
+        hook = self._apply_hooks.get(knob)
+        if hook is not None:
+            hook(new)
+        self.decisions.append(decision)
+        record("tune.decision", knob=knob, old=old, new=new,
+               phase=phase or "?", objective=objective or "?",
+               tick=self.ticks)
+        return decision
+
+    def _streak(self, verdicts: dict, name: str) -> int:
+        """Consecutive breach-tick count for an objective (hysteresis
+        state); updated per tick from the verdict."""
+        obj = verdicts.get("objectives", {}).get(name)
+        bad = obj is not None and not obj["ok"]
+        self._breach_streak[name] = \
+            self._breach_streak.get(name, 0) + 1 if bad else 0
+        return self._breach_streak[name]
+
+    def tick(self) -> Optional[dict]:
+        """One controller window: evaluate freeze guards, verdicts and
+        phase shares; make AT MOST one bounded decision.  Returns the
+        decision dict or None (frozen / cooling down / all green /
+        knob already at its bound)."""
+        self.ticks += 1
+        reason = self._freeze_reason()
+        if reason is not None:
+            if self._frozen_reason is None:
+                # record the TRANSITION, not every frozen tick — the
+                # freeze can outlast thousands of windows
+                self.freezes += 1
+                record("tune.freeze", reason=reason, tick=self.ticks)
+            self._frozen_reason = reason
+            # hysteresis state resets: post-freeze windows must prove
+            # a breach afresh (fault-era breaches are not evidence)
+            self._breach_streak.clear()
+            return None
+        self._frozen_reason = None
+        verdicts = self.slo.evaluate()
+        streaks = {name: self._streak(verdicts, name)
+                   for name in verdicts.get("objectives", {})}
+        if self._cooldown_left > 0:
+            self._cooldown_left -= 1
+            return None
+        decision = self._decide(verdicts, streaks)
+        if decision is not None:
+            self._cooldown_left = self.cooldown_windows
+        return decision
+
+    def _decide(self, verdicts: dict, streaks: dict) -> Optional[dict]:
+        objs = verdicts.get("objectives", {})
+
+        def hot(name: str) -> bool:
+            return streaks.get(name, 0) >= self.breach_windows
+
+        k = self.knobs["superstep_k"]
+        interval = self.knobs["wal_max_batch_interval_ms"]
+        # read_p99_ms is handled by its own trade rule below: a read
+        # breach must never read as a WRITE latency signal (it would
+        # back off the WAL or deepen fusion — both wrong for reads)
+        lat_hot = [n for n, o in objs.items()
+                   if o["op"] == "<=" and hot(n) and n != "read_p99_ms"]
+        # fsync-bound: the fsync objective itself burns, or a latency
+        # breach whose window budget the fsync phases own
+        phase, share = self._dominant_phase()
+        fsync_bound = hot("fsync_p99_ms") or (
+            bool(lat_hot) and phase in FSYNC_BOUND_PHASES)
+        if fsync_bound:
+            trigger = "fsync_p99_ms" if hot("fsync_p99_ms") \
+                else lat_hot[0]
+            tphase = phase if phase in FSYNC_BOUND_PHASES \
+                else "fsync_wait"
+            if interval > self.bounds["wal_max_batch_interval_ms"][0]:
+                # back off the group-commit wait budget first: it is
+                # pure added confirm latency on a slow disk (<=1ms
+                # rounds to 0 — a sub-ms wait budget is noise)
+                new = 0.0 if interval <= 1.0 else round(interval / 2, 3)
+                return self._set("wal_max_batch_interval_ms", new,
+                                 phase=tphase, objective=trigger)
+            if k > self.bounds["superstep_k"][0]:
+                # interval at floor: shrink the per-dispatch WAL burst
+                return self._set("superstep_k", max(1, k // 2),
+                                 phase=tphase, objective=trigger)
+            return None
+        # read/write trade: a read-latency breach with the
+        # write plane green means each fused dispatch is too LONG for
+        # the read confirm schedule — a pending read batch waits O(K)
+        # inner rounds for its commit-watermark confirmation before the
+        # next window boundary observes it.  Halve the fusion depth so
+        # reads settle sooner; if the throughput floor then burns, the
+        # headroom rule below wins the fusion back — the two rules
+        # walking K against each other IS the read/write trade, and
+        # hysteresis + cooldown keep the walk damped.
+        if hot("read_p99_ms") and not lat_hot:
+            if k > self.bounds["superstep_k"][0]:
+                return self._set("superstep_k", max(1, k // 2),
+                                 phase="read_e2e",
+                                 objective="read_p99_ms")
+            return None
+        if lat_hot and phase in DISPATCH_BOUND_PHASES:
+            # dispatch-bound latency: fuse more rounds per dispatch
+            if k < self.bounds["superstep_k"][1]:
+                return self._set("superstep_k", k * 2, phase=phase,
+                                 objective=lat_hot[0])
+            return None
+        thr_hot = [n for n, o in objs.items()
+                   if o["op"] == ">=" and hot(n)]
+        if thr_hot and not lat_hot:
+            # throughput floor burning with green latency: spend the
+            # latency headroom — deepen fusion first (amortize
+            # dispatch), then the per-lane batch
+            if k < self.bounds["superstep_k"][1]:
+                return self._set("superstep_k", k * 2,
+                                 phase=phase or "device_dispatch",
+                                 objective=thr_hot[0])
+            c = self.knobs["cmds_per_step"]
+            if c < self.bounds["cmds_per_step"][1]:
+                return self._set("cmds_per_step", c * 2,
+                                 phase=phase or "device_dispatch",
+                                 objective=thr_hot[0])
+        return None
+
+    # -- observability -----------------------------------------------------
+
+    def overview(self) -> dict:
+        """What the Observatory ``autotune`` source embeds and ra_top's
+        footer renders: live knob values (RA07's stamp), freeze state,
+        and the newest decision."""
+        last = self.decisions[-1] if self.decisions else None
+        return {
+            "knobs": {
+                "superstep_k": self.knobs["superstep_k"],
+                "cmds_per_step": self.knobs["cmds_per_step"],
+                "wal_max_batch_interval_ms":
+                    self.knobs["wal_max_batch_interval_ms"],
+            },
+            "frozen": self._frozen_reason is not None,
+            "freeze_reason": self._frozen_reason,
+            "freezes": self.freezes,
+            "ticks": self.ticks,
+            "decisions": len(self.decisions),
+            "cooldown_left": self._cooldown_left,
+            "last_decision": dict(last) if last else None,
+        }

@@ -2,8 +2,9 @@
 
 The port's own copy of ``ra_tpu/blackbox.py`` (the port imports nothing
 of ``ra_tpu``), with the registry cut to the planes the port has: the
-WAL shards, the durable engine's bridge, the storage fault plan and the
-supervisors.
+WAL shards, the durable engine's bridge, the storage fault plan, the
+supervisors, the ingress and wire planes, the autotuner and the device
+plane (whose four events keep the reference's texts).
 
 * :class:`FlightRecorder` -- an always-on, bounded, per-subsystem ring
   of structured events.  Every plane emits typed events through
@@ -101,6 +102,22 @@ EVENT_REGISTRY = {
     "placement.rehome_hint": "listener refused a frame routed on a "
                              "stale placement revision with a typed "
                              "REHOME hint (engine, generation, rev)",
+    # -- SLO autotuner (autotune.py) -----------------------------------
+    "tune.decision": "autotuner changed a knob (knob, old->new, "
+                     "triggering phase + objective) — RA07: no silent "
+                     "knob turns",
+    "tune.freeze": "autotuner entered a freeze (active FaultPlan/"
+                   "DiskFaultPlan or a fresh incident): decisions "
+                   "suspended",
+    # -- device plane (devicewatch.py) ---------------------------------
+    "device.recompile": "recompile sentinel caught a steady-state "
+                        "retrace of a wrapped jit entry point (fn tag "
+                        "+ which argument's shape/dtype/sharding "
+                        "drifted + compile wall ms)",
+    "profile.captured": "a jax_profile() capture finished; the profile "
+                        "dir rides along so the capture shows up in "
+                        "ra_trace timelines instead of being a side "
+                        "file nobody finds",
     # -- recorder meta -------------------------------------------------
     "bb.dump": "post-mortem bundle written",
     "bb.recover": "recovery stamped a join-able recovery report",

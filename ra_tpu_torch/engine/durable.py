@@ -94,8 +94,8 @@ UID = "__engine__"
 #: supervisor backs off for the window instead of hot-looping against a
 #: dead disk
 SHARD_RESTART_INTENSITY = (10, 5.0)
-#: a shard's group commit closes at this many payload bytes (the
-#: reference's default ``wal_batch_bytes``); it never waits for traffic
+#: the default byte cap of a shard's group commit (the reference's
+#: ``wal_batch_bytes``)
 WAL_BATCH_BYTES = 4 * 1024 * 1024
 #: recovery settle steps before ``open_engine`` gives up
 SETTLE_LIMIT = 10_000
@@ -470,6 +470,8 @@ class EngineDurability:
 
     def __init__(self, data_dir: str, n_lanes: int, *, sync_mode: int = 1,
                  max_pending: int = 8, wal_shards: int = 1,
+                 wal_batch_bytes: int = WAL_BATCH_BYTES,
+                 wal_batch_interval_ms: Optional[float] = None,
                  wal_supervise: bool = True) -> None:
         os.makedirs(data_dir, exist_ok=True)
         if not 1 <= wal_shards <= n_lanes:
@@ -479,6 +481,12 @@ class EngineDurability:
         self.n_lanes = n_lanes
         self.max_pending = max_pending
         self.wal_shards = wal_shards
+        if wal_batch_interval_ms is None:
+            # default: no wait.  Group commit still emerges under load
+            # (the greedy drain batches every record queued behind the
+            # backpressure window); an explicit interval only pays off
+            # when records arrive faster than fsyncs complete
+            wal_batch_interval_ms = 0.0
         self._cond = threading.Condition()
         self.counters: dict = {f: 0 for f in ENGINE_WAL_FIELDS}
         self.step_seq = 0
@@ -491,7 +499,8 @@ class EngineDurability:
         #: confirm horizon covers the step (the commit_e2e phase)
         self._submit_ts: dict = {}
         wal_kwargs = dict(sync_mode=sync_mode,
-                          max_batch_bytes=WAL_BATCH_BYTES,
+                          max_batch_bytes=wal_batch_bytes,
+                          max_batch_interval_ms=wal_batch_interval_ms,
                           phase_stats=self.phases,
                           # every shard's post-mortem bundles land at
                           # the BRIDGE's data dir, not one per shard
@@ -547,7 +556,8 @@ class EngineDurability:
             "data_dir": data_dir, "n_lanes": n_lanes,
             "wal_shards": wal_shards, "sync_mode": sync_mode,
             "max_pending": max_pending,
-            "wal_batch_bytes": WAL_BATCH_BYTES,
+            "wal_batch_bytes": wal_batch_bytes,
+            "wal_batch_interval_ms": wal_batch_interval_ms,
             "wal_supervise": wal_supervise,
         }
         self._bb_watermarks = self._watermark_source
@@ -631,6 +641,10 @@ class EngineDurability:
         return self._shards[0].wal
 
     @property
+    def wals(self) -> list:
+        return [sh.wal for sh in self._shards]
+
+    @property
     def confirm_upto(self) -> np.ndarray:
         """Merged per-lane durable horizon across shards."""
         if len(self._shards) == 1:
@@ -638,6 +652,10 @@ class EngineDurability:
         with self._cond:
             return np.concatenate(
                 [sh.confirm_upto for sh in self._shards])
+
+    @property
+    def confirmed_step(self) -> int:
+        return min(sh.confirmed_step for sh in self._shards)
 
     def seed(self, prev_hi: np.ndarray, step_seq: int) -> None:
         """Set the post-recovery baseline: everything up to ``prev_hi``
@@ -650,7 +668,7 @@ class EngineDurability:
                 sh.confirm_upto = prev[sh.lo:sh.hi].copy()
                 sh.confirmed_step = step_seq
 
-    # -- phase attribution -------------------------------------------------
+    # -- phase attribution / live tunables ---------------------------------
 
     def _note_confirmed_steps(self) -> None:
         """Pop submit stamps the MERGED confirm horizon now covers and
@@ -751,7 +769,25 @@ class EngineDurability:
         """Dispatched but unconfirmed steps on the laggiest shard: the
         durability half of the ingress plane's backlog (its queue depth
         plus this is the node's uncommitted total)."""
-        return self.step_seq - min(sh.confirmed_step for sh in self._shards)
+        return self.step_seq - self.confirmed_step
+
+    def shard_layout(self) -> list:
+        """``[[lo, hi], ...]``: the lane slice of each WAL shard."""
+        return [[sh.lo, sh.hi] for sh in self._shards]
+
+    def batch_interval_ms(self) -> float:
+        """The live WAL group-commit wait budget (uniform across shards;
+        the engine's pipeline overview stamps it)."""
+        return float(self._shards[0].wal.max_batch_interval_ms)
+
+    def set_batch_interval_ms(self, ms: float) -> None:
+        """Autotuner hook: retarget every shard's group-commit wait
+        budget.  The WAL batch threads read the interval once per group,
+        so the change lands at the next group: no restart, no flush."""
+        ms = max(0.0, float(ms))
+        for sh in self._shards:
+            sh.wal.max_batch_interval_ms = ms
+        self._bb_config["wal_batch_interval_ms"] = ms
 
     def backpressure(self, timeout: float = 30.0) -> None:
         """Bound the unconfirmed window: wait for WAL confirms when more
@@ -1014,8 +1050,10 @@ def _final_logs(blocks: list, ckpt_tail: np.ndarray):
 
 def open_engine(machine, data_dir: str, n_lanes: int, n_members: int = 3,
                 *, sync_mode: int = 1, max_pending: int = 8,
-                wal_shards: int = 1, wal_supervise: bool = True,
-                **engine_kwargs):
+                wal_shards: int = 1,
+                wal_batch_bytes: int = WAL_BATCH_BYTES,
+                wal_batch_interval_ms: Optional[float] = None,
+                wal_supervise: bool = True, **engine_kwargs):
     """Create-or-recover a durable LockstepEngine at ``data_dir``.
 
     Fresh directory: a new engine wired to ``wal_shards`` new WAL
@@ -1024,8 +1062,10 @@ def open_engine(machine, data_dir: str, n_lanes: int, n_members: int = 3,
     on its device (recomputing machine state with the same apply fold),
     and resume in durable mode: recovery = checkpoint + WAL re-read,
     deduped by the overwrite rule, applied with effects suppressed.
-    ``engine_kwargs`` go to :class:`LockstepEngine`, ``device`` among
-    them: None is the CUDA card, ``"cpu"`` the CPU by name only."""
+    ``wal_batch_bytes`` and ``wal_batch_interval_ms`` (None: 0.0, no
+    wait) set every shard's group commit.  ``engine_kwargs`` go to
+    :class:`LockstepEngine`, ``device`` among them: None is the CUDA
+    card, ``"cpu"`` the CPU by name only."""
 
     from .lockstep import LockstepEngine, _take
 
@@ -1043,6 +1083,8 @@ def open_engine(machine, data_dir: str, n_lanes: int, n_members: int = 3,
     # happen until attach, so constructing it up front is safe.
     dur = EngineDurability(data_dir, n_lanes, sync_mode=sync_mode,
                            max_pending=max_pending, wal_shards=wal_shards,
+                           wal_batch_bytes=wal_batch_bytes,
+                           wal_batch_interval_ms=wal_batch_interval_ms,
                            wal_supervise=wal_supervise)
     pieces = dur.recovered_pieces(base_step)
 

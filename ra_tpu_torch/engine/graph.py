@@ -18,9 +18,13 @@ host.
 * :class:`GraphCache` keeps one graph per shape key, like a jit cache
   keyed by shapes: a new key captures once.  It holds at most
   ``MAX_GRAPHS`` graphs (each owns static inputs, outputs and a private
-  memory pool), evicting the least recently used; every capture is
-  counted by ``devicewatch``, and a key captured again after its
-  eviction counts as a re-capture.
+  memory pool), evicting the least recently used.  Each variant of the
+  captured function (a superstep with or without a read schedule) is one
+  site of ``devicewatch``'s capture sentinel: every capture counts as a
+  compile, and every capture beyond a site's first (a key captured again
+  after its eviction, or a new shape) as a recompile, with the argument
+  leaf whose shape drifted named.  A new cache's first capture of a
+  variant is never a recompile.
 
 There is no eager fallback: a capture that fails raises.
 """
@@ -80,11 +84,13 @@ class CapturedCall:
 
 
 class GraphCache:
-    """Captured graphs by shape key."""
+    """Captured graphs by shape key (``devicewatch.WATCH.per_fn``'s
+    ``superstep`` entry)."""
 
     def __init__(self) -> None:
         self._graphs: collections.OrderedDict = collections.OrderedDict()
-        self._seen: set = set()
+        #: variant -> the argument signature of its last capture
+        self._last_sig: dict = {}
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -93,16 +99,22 @@ class GraphCache:
         return key in self._graphs
 
     def get(self, key, fn: Callable, args: tuple, device: torch.device,
-            launch_counts: Callable[[], dict]) -> CapturedCall:
+            launch_counts: Callable[[], dict],
+            variant: Any = None) -> CapturedCall:
         """The graph of ``key``, captured from ``fn(*args)`` if there is
-        none."""
+        none; ``variant`` names which function ``fn`` is, the sentinel's
+        site within the cache."""
         g = self._graphs.get(key)
         if g is not None:
             self._graphs.move_to_end(key)
             return g
         g = CapturedCall(fn, args, device, launch_counts)
-        devicewatch.record_capture(key in self._seen, g.capture_ms)
-        self._seen.add(key)
+        # paths as the reference's sentinel writes them: (args, kwargs)
+        sig = devicewatch.abstract_sig((args, {}))
+        last = self._last_sig.get(variant)
+        drift = None if last is None else devicewatch.diff_sig(last, sig)
+        self._last_sig[variant] = sig
+        devicewatch.WATCH.note_capture("superstep", g.capture_ms, drift)
         self._graphs[key] = g
         while len(self._graphs) > MAX_GRAPHS:
             self._graphs.popitem(last=False)

@@ -913,7 +913,7 @@ class LockstepEngine:
             lambda: {"commit_phase": commit_phase.LAUNCHES,
                      "evaluate_quorum": pallas_quorum.LAUNCHES,
                      "slot_fold": slot_fold.LAUNCHES,
-                     "fifo_fold": fifo_fold.LAUNCHES})
+                     "fifo_fold": fifo_fold.LAUNCHES}, variant=reads)
         if g.captured_launches["commit_phase"] != k:
             raise RuntimeError(
                 f"the superstep graph captured "
@@ -1234,13 +1234,17 @@ class LockstepEngine:
             "device": str(self.device),
             "machine": type(self.machine).__name__,
         }
-        # the dispatch pipeline: the last fused K, the attached driver's
-        # stage-ahead depth and live in-flight count, and the counters
+        # the dispatch pipeline: the last fused K, the autotuner's knobs
+        # (no silent knob turns: each knob beside the rates it moves), the
+        # attached driver's stage-ahead depth and live in-flight count,
+        # and the counters
         drv = self._driver
         out["pipeline"] = {
             "superstep_k": self._superstep_k_last,
             "cmds_per_step": self.max_step_cmds,
             "mesh_shape": self.mesh_shape(),
+            "wal_max_batch_interval_ms": self._dur.batch_interval_ms()
+            if self._dur is not None else -1.0,
             "dispatch_ahead": drv.max_in_flight if drv is not None else 0,
             "dispatches_in_flight": drv.in_flight() if drv is not None
             else 0,

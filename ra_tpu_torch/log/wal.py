@@ -260,6 +260,7 @@ class Wal:
 
     def __init__(self, data_dir: str, *, sync_mode: int = 1,
                  max_batch_bytes: int = 0,
+                 max_batch_interval_ms: float = 0.0,
                  segment_writer=None,
                  blackbox_dir: Optional[str] = None,
                  phase_stats=None) -> None:
@@ -268,12 +269,18 @@ class Wal:
         notify — durability before confirmation.
 
         Group-commit policy: a batch closes when the mailbox drains, when
-        it holds ``DEFAULT_MAX_BATCH`` records, or when its payload bytes
-        reach ``max_batch_bytes`` (0: no byte cap) — whichever comes
-        first; the writer never waits for more traffic (the fan-in
-        batching axis of ra_log_wal.erl:193-214).  A flush barrier or
-        rollover marker closes the group immediately.  A file rolls over
-        at ``DEFAULT_MAX_SIZE`` bytes.
+        it holds ``DEFAULT_MAX_BATCH`` records, when its payload bytes
+        reach ``max_batch_bytes`` (0: no byte cap), or when
+        ``max_batch_interval_ms`` has elapsed since the group opened —
+        whichever comes first.  With the interval at 0 (default) the
+        writer never waits for more traffic; a nonzero interval lets
+        bursty writers amortize one fdatasync over the whole burst (the
+        fan-in batching axis of ra_log_wal.erl:193-214, extended with an
+        explicit wait budget).  The interval is read once per group, so a
+        live change lands at the next group.  A flush barrier or rollover
+        marker closes the group immediately — flush latency never pays
+        the wait budget.  A file rolls over at ``DEFAULT_MAX_SIZE``
+        bytes.
         """
         self.dir = os.path.join(data_dir, "wal")
         os.makedirs(self.dir, exist_ok=True)
@@ -288,6 +295,8 @@ class Wal:
         #: None (the classic plane default) costs nothing
         self._phases = phase_stats
         self.max_batch_bytes = max_batch_bytes
+        #: group-commit wait budget (ms); the autotuner retargets it live
+        self.max_batch_interval_ms = max_batch_interval_ms
         #: bounded reservoir of recent durability-syscall latencies (s)
         self._sync_lats: collections.deque = collections.deque(maxlen=512)
         self.segment_writer = segment_writer
@@ -443,23 +452,32 @@ class Wal:
             batch = [first]
             # group-commit collection: greedy drain up to
             # DEFAULT_MAX_BATCH records (a __many__ fan-in item counts
-            # its whole run and is never split) or max_batch_bytes, so
-            # one fdatasync covers the whole burst.  Flush/roll markers
-            # close the group immediately.
+            # its whole run and is never split), optionally holding the
+            # group open up to max_batch_interval_ms / until
+            # max_batch_bytes, so one fdatasync covers the whole burst.
+            # Flush/roll markers close the group immediately.
             urgent = first[0] in ("__flush__", "__roll__")
             group_count, group_bytes = (0, 0) if urgent else \
                 self._item_weight(first)
+            interval_ms = self.max_batch_interval_ms  # once per group
+            deadline = time.monotonic() + interval_ms / 1000.0 \
+                if interval_ms > 0 else None
             while group_count < DEFAULT_MAX_BATCH and not urgent:
                 if self.max_batch_bytes and \
                         group_bytes >= self.max_batch_bytes:
                     break
                 try:
-                    item = self._queue.get_nowait()
+                    if deadline is None:
+                        item = self._queue.get_nowait()
+                    else:
+                        wait = deadline - time.monotonic()
+                        item = self._queue.get_nowait() if wait <= 0 \
+                            else self._queue.get(timeout=wait)
                 except queue.Empty:
                     break
                 if item[0] == "__crash__":
                     # the crash hook must fire even when collected into
-                    # an open group
+                    # an open group (interval mode)
                     self._crash_dump()
                     raise RuntimeError("wal killed")
                 batch.append(item)

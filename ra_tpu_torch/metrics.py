@@ -3,7 +3,8 @@
 Own copies of ``ra_tpu.metrics.ENGINE_PIPELINE_FIELDS``,
 ``TELEMETRY_FIELDS``, ``TELEMETRY_SUMMARY_FIELDS``, ``PHASE_FIELDS``,
 ``WAL_FIELDS``, ``ENGINE_WAL_FIELDS``, ``DISK_FAULT_FIELDS``,
-``INGRESS_FIELDS``, ``WIRE_FIELDS`` and ``READ_FIELDS`` (the port
+``INGRESS_FIELDS``, ``WIRE_FIELDS``, ``READ_FIELDS`` and
+``DEVICE_FIELDS`` (the port
 imports nothing of ``ra_tpu``); the equality of every tuple with the
 reference is pinned by ``tests/test_torch_engine.py``,
 ``tests/test_torch_wal.py`` and ``tests/test_torch_ingress.py``.
@@ -149,6 +150,25 @@ READ_FIELDS = (
     "replies_sent",
 )
 
+#: the device plane (``devicewatch.WATCH.counters``).  Capture sentinel:
+#: ``compiles`` CUDA graph captures (the port's compiles: a new graph key
+#: captures once), ``recompiles`` the captures of a key an engine had
+#: captured before (evicted) or of a new shape at a site (one variant of
+#: an engine's graph cache) that had one (steady state MUST stay 0),
+#: ``compile_ms`` their cumulative wall time.
+#: Transfer ledger: ``h2d_events``/``h2d_bytes`` host->device copies,
+#: ``d2h_events``/``d2h_bytes`` device->host readbacks.  Memory
+#: watermarks, sampled on the TelemetrySampler's harvest tick from the
+#: caching allocator's host-side statistics: ``live_buffers``/
+#: ``live_bytes`` allocations and bytes held at the last sample,
+#: ``peak_live_bytes`` the high-water mark, ``buffers_freed`` the frees
+#: the allocator counted between samples, ``watermark_samples`` samples.
+DEVICE_FIELDS = (
+    "compiles", "recompiles", "compile_ms", "h2d_events", "h2d_bytes",
+    "d2h_events", "d2h_bytes", "live_buffers", "live_bytes",
+    "peak_live_bytes", "buffers_freed", "watermark_samples",
+)
+
 #: every counter-field group of the port, by the reference's group names
 FIELD_REGISTRY = {
     "wal": WAL_FIELDS,
@@ -161,4 +181,5 @@ FIELD_REGISTRY = {
     "ingress": INGRESS_FIELDS,
     "read": READ_FIELDS,
     "wire": WIRE_FIELDS,
+    "device": DEVICE_FIELDS,
 }

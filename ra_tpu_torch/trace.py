@@ -12,10 +12,9 @@ contract:
 
 Instrumented sites: the durable engine's dispatch and its WAL bridge
 (``engine/lockstep.py``, ``engine/durable.py``), the WAL batch loop
-(``log/wal.py``), and anything user code wraps in ``trace.span``.  The
-reference's ``jax_profile`` has no counterpart here yet: a device
-timeline of the port comes from ``torch.profiler``
-(``ra_tpu_torch.step_profile``).
+(``log/wal.py``), and anything user code wraps in ``trace.span``.
+:func:`torch_profile`, the counterpart of the reference's
+``jax_profile``, captures a device timeline with ``torch.profiler``.
 """
 from __future__ import annotations
 
@@ -165,3 +164,32 @@ def instant(name: str, cat: str = "ra", **args: Any) -> None:
     t = _tracer
     if t is not None:
         t.instant(name, cat, **args)
+
+
+# -- device-side profiling ---------------------------------------------------
+
+@contextlib.contextmanager
+def torch_profile(log_dir: str) -> Iterator[Any]:
+    """Capture a ``torch.profiler`` trace (host ops and, on a card, its
+    kernels and copies) around the with-body and write it to
+    ``log_dir/trace.json`` (Chrome trace-event format) on exit.  Yields
+    the profiler, so the caller can read ``key_averages()`` too.
+
+    The capture is stamped into the flight recorder on exit
+    (``profile.captured`` + the profile dir), so it shows up in
+    timelines next to the events it covers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .blackbox import record
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        yield prof
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    record("profile.captured", dir=str(log_dir),
+           wall_s=round(time.perf_counter() - t0, 3))

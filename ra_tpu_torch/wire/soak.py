@@ -7,16 +7,16 @@ full wire path -- fixed-stride DATA encode, per-connection rings,
 vectorised sweep, ingress dedup/admission/coalescing, fused dispatch --
 with credit verdicts and commit-watermark ACKs flowing back, a mid-run
 reconnect storm (epoch bumps and at-least-once replay), member-failure
-and election chaos on the lane plane, and (durable variant, optionally)
+and election chaos on the lane plane, a lossy transport FaultPlan in the
+process registry for the run's length, and (durable variant, optionally)
 a seeded DiskFaultPlan injecting real WAL faults.  The
 exactly-once-observable oracle closes the run: every op's delta applied
 exactly once (machine-level dedup absorbs the storm's duplicate rows),
 every ranked op acked.  The tail row carries ``wire_cmds_per_s``,
 ``wire_shed_rate`` and ``wire_reconnect_recovery_s``.
 
-Left out of the reference's rung: the lossy transport ``FaultPlan`` it
-registers for the run's length (nothing on this path reads it) and the
-sharded engine (``mesh=True`` raises).
+Left out of the reference's rung: the sharded engine (``mesh=True``
+raises).
 
 Transports: ``socket_conns`` real-socket ``WireClient``s against the
 TCP listener ride beside the loopback fleet, which shares every byte of
@@ -54,6 +54,7 @@ def run_wire_soak(seed: int, *, conns: int = 10_000,
     trace a window of the measured waves."""
     from ..engine import LockstepEngine
     from ..ingress import IngressPlane
+    from ..transport.rpc import FaultPlan, FaultSpec
     if mesh:
         raise NotImplementedError("mesh not ported: run_wire_soak takes "
                                   "mesh=False")
@@ -71,6 +72,7 @@ def run_wire_soak(seed: int, *, conns: int = 10_000,
         eng = LockstepEngine(machine, lanes, 3, ring_capacity=ring,
                              max_step_cmds=cmds, device=device)
     disk_plan = None
+    net_plan = FaultPlan(seed=seed, default=FaultSpec(drop=0.1))
     if disk_faults:
         from ..log import faults
         disk_plan = faults.DiskFaultPlan(
@@ -232,6 +234,7 @@ def run_wire_soak(seed: int, *, conns: int = 10_000,
         for cli in side_cars:
             cli.close()
         lst.close()
+        net_plan.unregister()
         if disk_faults:
             from ..log import faults
             faults.clear_plan()

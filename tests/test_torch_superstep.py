@@ -343,8 +343,8 @@ def test_steady_driver_loop_makes_no_capture(cuda_device):
         drv.submit(nb, pb)
     drv.drain()
     c1 = dict(devicewatch.WATCH.counters)
-    assert c1["graph_captures"] == c0["graph_captures"]
-    assert c1["graph_recaptures"] == c0["graph_recaptures"]
+    assert c1["compiles"] == c0["compiles"]
+    assert c1["recompiles"] == c0["recompiles"]
     assert commit_phase.LAUNCHES == launches          # replays only
     assert (drv.last_committed == eng.state.total_committed.cpu().numpy()
             ).all()
@@ -354,8 +354,13 @@ def test_steady_driver_loop_makes_no_capture(cuda_device):
     eng.superstep(np.full((3, N), 1, np.int32), np.ones((3, N, 2, 1),
                                                         np.int32))
     c2 = devicewatch.WATCH.counters
-    assert c2["graph_captures"] == c1["graph_captures"] + 1
-    assert c2["graph_recaptures"] == c1["graph_recaptures"]
+    assert c2["compiles"] == c1["compiles"] + 1
+    # a new shape at a site that had one is a recompile, and the
+    # sentinel names the block leaf whose shape drifted
+    assert c2["recompiles"] == c1["recompiles"] + 1
+    drift = devicewatch.WATCH.per_fn["superstep"]["last_drift"]
+    assert drift.startswith("[0][1]: shape") and f"(8, {N})" in drift \
+        and f"(3, {N})" in drift, drift
 
 
 @pytest.mark.cuda
