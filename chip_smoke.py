@@ -157,6 +157,25 @@ non-zero (there is no CPU path and no fallback to a plain version):
              measured sections, every replica's KV state and every served
              read against the lanes' logs rebuilt from the WAL
 
+  mesh_parity
+             the counter and JitKvMachine(16) sharded over a 1x4 mesh (3
+             members) and a 2x2 mesh (4 members, the members axis split)
+             of four slots on cuda:0, and over one slot a card where the
+             machine has two cards or more: 1,024 lanes, K = 1 and 8, a
+             mid-dispatch election, then mesh_superstep_driver; every
+             leaf equal to an unsharded card engine after every dispatch
+  mesh_path  the lane mesh at full width on four slots of cuda:0: the
+             10,000 x 5 counter at K = 8 x 128 commands through
+             mesh_superstep_driver on a 1x4 mesh and 10,000 x 4 on a 2x2
+             mesh (ms per inner step, committed cmds/s, each shard's host
+             graph call p50, the members axis' gather and scatter ms a
+             dispatch) beside superstep_path's unsharded numbers; bench.py
+             --multichip's sweep (mesh_shapes(4) x ladder_rungs at 8
+             commands, the autotuner walking K, 2 s a point) held against
+             a plain model of the mix; open_engine with one WAL shard a
+             lane shard under a 1x4 mesh: committed equal to the logs
+             rebuilt from the WAL, checkpoint and an equal reopen
+
 The fold_kernels phase also holds the stream decoder (random, append-only,
 int32-edge and invalid-op windows, a ring of 5 and one of 30,000), and a
 FIFO of capacity 12 and a stream of capacity 5 whose batch folds on the
@@ -164,8 +183,8 @@ card equal the CPU's at the int32 edge; machine_parity also runs the
 stream and the dedup counter.
 
 then the kernels summary line (launches on every path, each counted from
-0 just before it: main, superstep, durable, fifo, kv, stream, wire, tune
-and reads;
+0 just before it: main, superstep, durable, fifo, kv, stream, wire, tune,
+reads, mesh_parity and mesh_path;
 "launches" is
 the count on the kernel's own path), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -2808,7 +2827,8 @@ def tune_loop(dev, wal_dir: str, *, n_lanes: int = 10_000, cmds: int = 128,
 
     Held: after each restage the first dispatch of the new K leaves
     ``overview()["pipeline"]["superstep_k"]`` at that K, and every K
-    dispatched is one the tuner decided (no silent turns); after every
+    dispatched is one the tuner decided (no silent turns), and every K it
+    decided is dispatched before the freeze probe; after every
     tick each shard's group-commit wait equals the tuner's knob; a
     ``DiskFaultPlan`` installed for two ticks freezes the tuner (one
     ``tune.freeze``, no decision); after drain, flush and settle the
@@ -2943,6 +2963,15 @@ def tune_loop(dev, wal_dir: str, *, n_lanes: int = 10_000, cmds: int = 128,
     # begins)
     time.sleep(max(0.0, tuner._compile_quiet_until - time.time()) + 0.05)
     observe(time.perf_counter())
+    # a K decided by the window's last tick or by the one just taken has
+    # not been dispatched yet: restage it and dispatch until its first
+    # block has gone out, so that every decision is held to its stamp
+    if tuner.knobs["superstep_k"] != cur:
+        cur = tuner.knobs["superstep_k"]
+        nb, pb = blocks(cur)
+        last["done"] = None
+    while dispatched[-1]["k"] != cur:
+        submit()
     # two ticks under an installed DiskFaultPlan (a quiet one: no fault
     # is injected, being installed is what freezes)
     f0 = sum(1 for e in RECORDER.events("tune") if e[1] == "tune.freeze")
@@ -3347,6 +3376,429 @@ def phase_reads_path(dev) -> dict:
     return launches
 
 
+# -- the lane mesh -------------------------------------------------------------
+
+def mesh_layouts(dev) -> list:
+    """``(where, four slots)``: four slots on one card, and one slot a
+    card in turn where the machine has two cards or more."""
+    count = torch.cuda.device_count()
+    out = [("one_card", [dev] * 4)]
+    if count >= 2:
+        out.append(("cards", [torch.device("cuda", i % count)
+                              for i in range(4)]))
+    return out
+
+
+def mesh_equal(a, b, aux_a, aux_b, state_to_numpy, what: str) -> None:
+    """The sharded engine ``b`` equal to ``a`` on every leaf and dtype,
+    and its stacked committed watermark equal to ``a``'s."""
+    sa, sb = state_to_numpy(a.state), state_to_numpy(b.state)
+    bad = [k for k in sa if sa[k].dtype != sb[k].dtype
+           or not np.array_equal(sa[k], sb[k])]
+    if set(sa) != set(sb) or bad:
+        raise AssertionError(f"{what}: leaves differ {bad[:4]}")
+    if aux_a is not None and not np.array_equal(
+            aux_a["committed_lanes"].cpu().numpy(),
+            np.asarray(aux_b["committed_lanes"])):
+        raise AssertionError(f"{what}: committed watermarks differ")
+
+
+def phase_mesh_parity(LockstepEngine, state_to_numpy, dev) -> dict:
+    """The counter and ``JitKvMachine(16)`` sharded over a 1x4 mesh (3
+    members) and a 2x2 mesh (4 members, the members axis split) of four
+    slots on one card, and over one slot a card where there are two cards
+    or more: 1,024 lanes, 8 commands, K = 1 then 8, three dispatches each
+    with a mid-dispatch election on a failed leader, then four distinct
+    blocks through mesh_superstep_driver (the host running ahead); after every dispatch every leaf (and
+    the stacked committed watermark) equal to an unsharded card engine
+    fed the same blocks.  Kernel launches counted from 0 just before."""
+    from ra_tpu_torch.models import CounterMachine, JitKvMachine
+    from ra_tpu_torch.parallel.mesh import (lane_mesh,
+                                            mesh_superstep_driver,
+                                            shard_engine_state)
+    mods = kernel_modules()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    t0 = time.perf_counter()
+    N, kc = 1024, 8
+    rows = []
+    for where, slots in mesh_layouts(dev):
+        for m_ax, P in ((1, 3), (2, 4)):
+            for name, make in (("sequential", CounterMachine),
+                               ("kv", lambda: JitKvMachine(16))):
+                def mk():
+                    return LockstepEngine(make(), N, P, ring_capacity=64,
+                                          max_step_cmds=kc,
+                                          apply_window=kc + 2, device=dev)
+                a, b = mk(), mk()
+                mesh = lane_mesh(slots, member_axis=m_ax)
+                shard_engine_state(b, mesh)
+                rng = np.random.default_rng(10 * m_ax + len(name))
+                what = f"mesh_parity {where} {b.mesh_shape()} {name}"
+                checks = 0
+                for k in (1, 8):
+                    failed = []
+                    for rnd in range(3):
+                        n_new = rng.integers(0, kc + 1, (k, N)) \
+                            .astype(np.int32)
+                        pay = parity_payloads(name, rng, k, N, kc)
+                        elect = np.zeros((k, N), bool)
+                        if rnd == 1:
+                            lead = int(a.state.leader_slot[1])
+                            a.fail_member(1, lead)
+                            b.fail_member(1, lead)
+                            failed.append((1, lead))
+                            elect[min(1, k - 1), 1] = True
+                        aux_a = a.superstep(n_new, pay, elect_blk=elect)
+                        aux_b = b.superstep(n_new, pay, elect_blk=elect)
+                        mesh_equal(a, b, aux_a, aux_b, state_to_numpy,
+                                   f"{what} K={k} r={rnd}")
+                        checks += 1
+                    for lane, slot in failed:
+                        if int(a.state.leader_slot[lane]) != slot:
+                            a.recover_member(lane, slot)
+                            b.recover_member(lane, slot)
+                    drv = mesh_superstep_driver(b, mesh)
+                    for _ in range(4):
+                        nb = rng.integers(0, kc + 1, (k, N)).astype(np.int32)
+                        pb = parity_payloads(name, rng, k, N, kc)
+                        a.superstep(nb, pb)
+                        drv.submit(nb, pb)
+                    drv.close()
+                    mesh_equal(a, b, None, None, state_to_numpy,
+                               f"{what} K={k} driver")
+                    checks += 1
+                rows.append({"where": where, "mesh": b.mesh_shape(),
+                             "members": P, "machine": type(a.machine)
+                             .__name__, "checks": checks,
+                             "devices": [str(d) for d in
+                                         mesh.distinct_devices()]})
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    if not launches["commit_phase"] or not launches["slot_fold"]:
+        raise AssertionError(f"mesh_parity launches {launches}")
+    emit({"phase": "mesh_parity", "seconds": time.perf_counter() - t0,
+          "lanes": N, "cmds_per_step": kc, "superstep_k": [1, 8],
+          "runs": rows, "states_equal": True, "host_launches": launches})
+    return launches
+
+
+def shard_spans(fn):
+    """Run ``fn()`` with a fresh tracer on; returns (fn's result, the
+    host ms of each ``engine.shard`` span, by shard)."""
+    from ra_tpu_torch import trace
+    tracer = trace.Tracer()
+    trace.set_tracer(tracer)
+    try:
+        out = fn()
+    finally:
+        trace.set_tracer(None)
+    by: dict = collections.defaultdict(list)
+    for e in tracer.events():
+        if e.get("name") == "engine.shard":
+            by[e["args"]["shard"]].append(e["dur"] / 1e3)
+    return out, {j: {"count": len(v), "p50_ms": sorted(v)[len(v) // 2],
+                     "max_ms": max(v)} for j, v in sorted(by.items())}
+
+
+def member_copy_ms(eng, reps: int = 20) -> dict:
+    """Device ms a dispatch of the members axis' gather and scatter (every
+    lane shard's), by CUDA events on one card; 0 copies on a lanes-only
+    mesh."""
+    shards = eng._shards
+    if not any(sh.split for sh in shards):
+        return {"gather_ms": 0.0, "scatter_ms": 0.0, "copy_bytes": 0}
+    fulls = [sh.gather() for sh in shards]
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    gather = timed(lambda: [sh.gather() for sh in shards])
+    scatter = timed(lambda: [sh.scatter(f) for sh, f in zip(shards, fulls)])
+    eng._state_joined = None
+    return {"gather_ms": gather, "scatter_ms": scatter,
+            "copy_bytes": sum(sh.copy_bytes for sh in shards)}
+
+
+def mesh_counter_window(dev, m_ax: int, P: int, *, N: int = 10_000,
+                        cmds: int = 128, K: int = 8, warm: int = 2,
+                        timed: int = 25) -> dict:
+    """BASELINE's counter at N x P, 128 commands a lane a step, through
+    mesh_superstep_driver over a ``m_ax`` x (4 / m_ax) mesh of four slots
+    on one card: ms per inner step, committed cmds/s, the host graph call
+    p50 of each shard, the members axis' copy ms a dispatch; exact
+    commits and counters after a settling block."""
+    from ra_tpu_torch.devicewatch import WATCH
+    from ra_tpu_torch.engine import LockstepEngine
+    from ra_tpu_torch.models import CounterMachine
+    from ra_tpu_torch.parallel.mesh import (lane_mesh,
+                                            mesh_superstep_driver,
+                                            shard_engine_state)
+    eng = LockstepEngine(CounterMachine(), N, P, ring_capacity=1024,
+                         max_step_cmds=cmds, apply_window=cmds + 2,
+                         write_delay=1, device=dev)
+    mesh = shard_engine_state(eng, lane_mesh([dev] * 4, member_axis=m_ax))
+    drv = mesh_superstep_driver(eng, mesh)
+    n_blk = np.broadcast_to(np.full(N, cmds, np.int32), (K, N))
+    p_blk = np.broadcast_to(np.ones((N, cmds, 1), np.int32),
+                            (K, N, cmds, 1))
+    for _ in range(warm):
+        drv.submit(n_blk, p_blk)
+    drv.drain()
+    torch.cuda.synchronize()
+    watch0 = dict(WATCH.counters)
+    committed0 = eng.committed_total()
+
+    def window():
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            drv.submit(n_blk, p_blk)
+        drv.drain()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    seconds, spans = shard_spans(window)
+    committed1 = eng.committed_total()
+    captures = WATCH.counters["compiles"] - watch0["compiles"]
+    copies = member_copy_ms(eng)
+    drv.submit(np.zeros((K, N), np.int32), p_blk)
+    drv.close()
+    want = cmds * K * (warm + timed)
+    per_lane = eng.committed_per_lane()
+    counters = eng.machine_states()
+    if captures or not (per_lane == want).all() or \
+            not (counters == want).all():
+        raise AssertionError(f"mesh {eng.mesh_shape()}: {captures} "
+                             "captures in the window, or committed != "
+                             f"{want} on {int((per_lane != want).sum())} "
+                             "lanes")
+    return {"mesh": eng.mesh_shape(), "lanes": N, "members": P,
+            "superstep_k": K, "cmds_per_step": cmds,
+            "timed_dispatches": timed, "slots_on": str(dev),
+            "ms_per_inner_step": seconds / (timed * K) * 1e3,
+            "committed_cmds_per_s": (committed1 - committed0) / seconds,
+            "host_graph_call_by_shard": spans,
+            "member_copy_ms_per_dispatch": copies["gather_ms"]
+            + copies["scatter_ms"], "member_gather_ms": copies["gather_ms"],
+            "member_scatter_ms": copies["scatter_ms"],
+            "member_copy_bytes_per_dispatch": copies["copy_bytes"],
+            "input_copies_between_devices": 0,
+            "committed_per_lane": want, "counters_equal": True}
+
+
+def mesh_rung_point(dev, m_ax: int, lanes: int, members: int, *,
+                    cmds: int = 8, seconds: float = 2.0) -> dict:
+    """One point of ``bench.py --multichip``'s sweep on four slots of one
+    card: the counter at ``lanes`` x ``members``, ``cmds`` commands,
+    write delay 1, through mesh_superstep_driver with a sampler at every
+    inner step, an Observatory, an SloEngine with a throughput floor past
+    reach and an AutoTuner walking K from 1 (to 32, 16 or 8 by lanes, as
+    the bench bounds it) for ``seconds``; the realized rate at each K and
+    over the window.  Held against a plain model of the mix: after drain
+    and two empty steps every lane committed and applied ``cmds`` times
+    its inner steps."""
+    from ra_tpu_torch.autotune import AutoTuner
+    from ra_tpu_torch.engine import LockstepEngine
+    from ra_tpu_torch.models import CounterMachine
+    from ra_tpu_torch.parallel.mesh import (drive_uniform_window, lane_mesh,
+                                            mesh_superstep_driver,
+                                            shard_engine_state)
+    from ra_tpu_torch.slo import SloEngine, default_objectives
+    from ra_tpu_torch.telemetry import Observatory, TelemetrySampler
+    eng = LockstepEngine(CounterMachine(), lanes, members,
+                         ring_capacity=max(64, 4 * cmds), max_step_cmds=cmds,
+                         apply_window=cmds + 2, write_delay=1, device=dev)
+    mesh = shard_engine_state(eng, lane_mesh([dev] * 4, member_axis=m_ax))
+    n_new = np.full((lanes,), cmds, np.int32)
+    payloads = np.ones((lanes, cmds, 1), np.int32)
+    for _ in range(3):
+        eng.step(n_new, payloads)
+    sent = 3
+    drv = mesh_superstep_driver(eng, mesh)
+    sampler = TelemetrySampler(eng, cadence_steps=1)
+    obs = Observatory.for_engine(eng, sampler=sampler)
+    slo = SloEngine(obs, default_objectives(min_cmds_per_s=1e12),
+                    fast_windows=2, slow_windows=4, burn_fast=0.5)
+    k_hi = 32 if lanes <= 1024 else (16 if lanes <= 8192 else 8)
+    tuner = AutoTuner(slo, obs, bounds={"cmds_per_step": (cmds, cmds),
+                                        "superstep_k": (1, k_hi)},
+                      knobs={"superstep_k": 1, "cmds_per_step": cmds},
+                      cooldown_windows=1, breach_windows=1,
+                      incident_freeze_s=0.0, compile_freeze_s=0.2)
+
+    def blocks(k):
+        return (np.broadcast_to(n_new, (k, lanes)),
+                np.broadcast_to(payloads, (k,) + payloads.shape))
+    cur = [1]
+    rate_by_k: dict = {}
+    last = [0.0, None]
+    walk = []
+
+    def observe():
+        now = time.perf_counter()
+        if now - last[0] < 0.2:
+            return None
+        lc = drv.last_committed
+        if lc is not None:
+            done = int(lc.astype(np.int64).sum())
+            if last[1] is not None:
+                acc = rate_by_k.setdefault(cur[0], [0, 0.0])
+                acc[0] += done - last[1]
+                acc[1] += now - last[0]
+            last[1] = done
+        last[0] = now
+        obs.snapshot()
+        tuner.tick()
+        if tuner.knobs["superstep_k"] != cur[0]:
+            cur[0] = tuner.knobs["superstep_k"]
+            walk.append(cur[0])
+            last[1] = None          # the first window holds the capture
+            return blocks(cur[0])
+        return None
+    nb, pb = blocks(1)
+    for _ in range(2):
+        drv.submit(nb, pb)
+    drv.drain()
+    sent += 2
+    c0 = eng.committed_total()
+    t0 = time.perf_counter()
+    dispatches, inner, _el = drive_uniform_window(drv, nb, pb, seconds,
+                                                  observe=observe)
+    drv.drain()
+    elapsed = time.perf_counter() - t0
+    committed = eng.committed_total() - c0
+    sent += inner
+    drv.close()
+    obs.close()
+    eng._telemetry = None
+    for _ in range(2):
+        eng.step(np.zeros_like(n_new), payloads)
+    per_lane = eng.committed_per_lane()
+    counters = eng.machine_states()
+    want = cmds * sent
+    if not (per_lane == want).all() or not (counters == want).all():
+        raise AssertionError(f"mesh rung {eng.mesh_shape()} x {lanes}: "
+                             f"committed != {want} on "
+                             f"{int((per_lane != want).sum())} lanes")
+    return {"mesh": eng.mesh_shape(), "lanes": lanes, "members": members,
+            "cmds_per_step": cmds, "seconds": seconds,
+            "dispatches": dispatches, "inner_steps": inner,
+            "committed_cmds_per_s": committed / elapsed,
+            "k_walk": walk, "k_last": cur[0], "k_bound": k_hi,
+            "rate_by_k": {k: v[0] / v[1] for k, v in rate_by_k.items()
+                          if v[1] > 0},
+            "committed_equals_model": True}
+
+
+def mesh_durable_run(dev, wal_dir: str, state_to_numpy, *, N: int = 10_000,
+                     P: int = 5, cmds: int = 16, K: int = 8,
+                     dispatches: int = 10) -> dict:
+    """open_engine with per_device_wal_shards (4) under a 1x4 mesh of four
+    slots on one card, sync_mode 1, through mesh_superstep_driver; after
+    flush and settle the committed total equals every leader's log, each
+    member's counter and the lanes' logs rebuilt from the WAL (RTB2
+    blocks, one WAL shard a lane shard); then a checkpoint, close, and
+    open_engine (unsharded, on the card) equal on the core leaves."""
+    from ra_tpu_torch.engine.durable import decode_block, open_engine
+    from ra_tpu_torch.log.wal import scan_wal_file
+    from ra_tpu_torch.models import CounterMachine
+    from ra_tpu_torch.parallel.mesh import (lane_mesh,
+                                            mesh_superstep_driver,
+                                            per_device_wal_shards,
+                                            shard_engine_state)
+    shutil.rmtree(wal_dir, ignore_errors=True)
+    mesh = lane_mesh([dev] * 4)
+    shards = per_device_wal_shards(mesh)
+    kw = dict(wal_shards=shards, sync_mode=1, max_pending=32,
+              ring_capacity=1024, max_step_cmds=cmds,
+              apply_window=cmds + 2, device=dev)
+    eng = open_engine(CounterMachine(), wal_dir, N, P, **kw)
+    shard_engine_state(eng, mesh)
+    drv = mesh_superstep_driver(eng, mesh)
+    n_blk = np.broadcast_to(np.full(N, cmds, np.int32), (K, N))
+    p_blk = np.broadcast_to(np.ones((N, cmds, 1), np.int32),
+                            (K, N, cmds, 1))
+    t0 = time.perf_counter()
+    for _ in range(dispatches):
+        drv.submit(n_blk, p_blk)
+    drv.close()
+    seconds = time.perf_counter() - t0
+    eng._dur.flush_all()
+    settle = settle_durable(eng, cmds)
+    lane = np.arange(N)
+    st = eng.state
+    lead = st.leader_slot.cpu().numpy()
+    per_lane = eng.committed_per_lane().astype(np.int64)
+    tail = st.last_index.cpu().numpy()[lane, lead].astype(np.int64)
+    counters = eng.machine_states()
+    logs = wal_logs(wal_dir, scan_wal_file, decode_block, N)
+    log_len = np.array([len(lg) for lg in logs], np.int64)
+    log_sum = np.array([int(lg.astype(np.int64).sum()) for lg in logs])
+    if not (per_lane == tail).all() or not (per_lane == log_len).all() or \
+            not (counters == per_lane[:, None]).all() or \
+            not (log_sum == per_lane).all():
+        raise AssertionError("mesh durable: committed != logs")
+    layout = eng._dur.shard_layout()
+    before = core(eng.state, state_to_numpy)
+    eng.checkpoint()
+    eng.close()
+    t1 = time.perf_counter()
+    eng2 = open_engine(CounterMachine(), wal_dir, N, P, **kw)
+    reopen_s = time.perf_counter() - t1
+    after = core(eng2.state, state_to_numpy)
+    eng2.close()
+    bad = [k for k in before if not np.array_equal(before[k], after[k])]
+    if bad:
+        raise AssertionError(f"mesh durable reopen: leaves differ {bad[:4]}")
+    shutil.rmtree(wal_dir, ignore_errors=True)
+    return {"mesh": "1x4", "lanes": N, "members": P, "cmds_per_step": cmds,
+            "superstep_k": K, "dispatches": dispatches, "seconds": seconds,
+            "wal_shards": shards, "wal_shard_layout": layout,
+            "settle_steps": settle, "committed": int(per_lane.sum()),
+            "sent": N * cmds * K * dispatches,
+            "committed_equals_logs": True, "reopen_s": reopen_s,
+            "reopen_core_equal": True}
+
+
+def phase_mesh_path(dev, volatile: dict, state_to_numpy) -> dict:
+    """The lane mesh on the card, every kernel's launches counted from 0
+    just before: BASELINE's counter through mesh_superstep_driver on a
+    1x4 mesh (10,000 x 5) and a 2x2 mesh (10,000 x 4) of four slots on
+    cuda:0, beside superstep_path's unsharded numbers from this run;
+    bench.py --multichip's sweep (mesh_shapes(4) x
+    ladder_rungs(lane_ladder()) at 8 commands, the autotuner walking K,
+    2 s a point); and the durable 1x4 run."""
+    from ra_tpu_torch.parallel.mesh import (ladder_rungs, lane_ladder,
+                                            mesh_shapes)
+    mods = kernel_modules()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    t0 = time.perf_counter()
+    windows = [mesh_counter_window(dev, 1, 5), mesh_counter_window(dev, 2, 4)]
+    for w in windows:
+        emit({"phase": "mesh_path_window", **w,
+              "unsharded_superstep_path": volatile})
+    rung = [mesh_rung_point(dev, m_ax, lanes, members)
+            for m_ax, l_ax, members in mesh_shapes(4)
+            for lanes in ladder_rungs(lane_ladder(), l_ax)]
+    for r in rung:
+        emit({"phase": "mesh_path_rung", **r})
+    durable = mesh_durable_run(dev, str(WAL_ROOT / "mesh"), state_to_numpy)
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    if not launches["commit_phase"] or launches["evaluate_quorum"] or \
+            launches["slot_fold"] or launches["fifo_fold"]:
+        raise AssertionError(f"mesh_path launches {launches}")
+    emit({"phase": "mesh_path", "seconds": time.perf_counter() - t0,
+          "durable": durable, "host_launches": launches})
+    return launches
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of ra_tpu_torch "
@@ -3420,6 +3872,9 @@ def main() -> int:
         wire_launches = phase_wire_path(dev)
         tune_launches = phase_tune_path(dev)
         reads_launches = phase_reads_path(dev)
+        mesh_parity_launches = phase_mesh_parity(LockstepEngine,
+                                                 state_to_numpy, dev)
+        mesh_launches = phase_mesh_path(dev, volatile, state_to_numpy)
     finally:
         shutil.rmtree(WAL_ROOT, ignore_errors=True)
     # launches of each kernel on each path, each counted from 0 just
@@ -3442,6 +3897,8 @@ def main() -> int:
         k["launches_wire_path"] = wire_launches["host"][name]
         k["launches_tune_path"] = tune_launches[name]
         k["launches_reads_path"] = reads_launches[name]
+        k["launches_mesh_parity"] = mesh_parity_launches[name]
+        k["launches_mesh_path"] = mesh_launches[name]
         if name in folds:
             k["launches"] = folds[name]["host"][name]
             k["executions_profiled"] = folds[name]["profiled_executions"]

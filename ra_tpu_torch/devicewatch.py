@@ -18,12 +18,16 @@ registry group.
   variant of one engine's graph cache (a superstep with a read schedule
   and one without capture different functions, as the reference's
   sentinel wraps each jitted function), so a new engine's first capture
-  of a variant is never a recompile.  A steady dispatch loop captures
-  nothing.
+  of a variant is never a recompile.  A sharded engine keeps one graph
+  cache a lane shard (``engine/shards.py``), so each shard's first
+  capture, on whatever device, is a compile and not a recompile.  A
+  steady dispatch loop captures nothing.
 * **Transfer ledger** -- :func:`record_h2d` / :func:`record_d2h` count
   copy events and bytes per named call site (``driver_stage``,
   ``driver_watermark``, ``driver_read``, ``lanes_async``,
-  ``sampler_harvest``, and ``wal_readback``: the durable engine's WAL
+  ``sampler_harvest``, ``mesh_shard`` (an engine's placement over a
+  mesh, charged once when it is sharded), and ``wal_readback``: the
+  durable engine's WAL
   shards pulling a step's compacted rows and headers off the device) in
   ``WATCH.sites`` and in the totals.  A copy is counted when it starts,
   from the sizes the caller already holds, so the taps never touch the

@@ -18,6 +18,13 @@ releases the interpreter lock while it copies): one thread copies the
 bench's 41 MB block in about as long as the device takes to run it.
 The copy is complete when ``submit`` returns, so the caller may reuse
 its arrays at once.
+
+On a sharded engine (``parallel.mesh.shard_engine_state``) every staged
+array is staged as one piece a lane shard, each straight onto its
+shard's home device (a pinned buffer, a device buffer, a copy stream a
+device and the events a piece), so that a dispatch makes no copy
+between devices for its inputs; the pieces reach ``superstep`` as
+``LaneParts``.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import torch
 
 from .. import devicewatch
 from ..readback import Readback
+from .shards import LaneParts
 
 
 #: threads copying a staged array of at least _SPLIT_BYTES into pinned
@@ -40,25 +48,30 @@ _SPLIT_BYTES = 1 << 20
 
 
 class _Slot:
-    """One staging slot: pinned and device buffers by (position, shape,
-    dtype), the event of its last host-to-device copy, and the event of
-    the last dispatch that read its device buffers."""
+    """One staging slot: for each target (a lane shard's home device, or
+    the engine's one device) pinned and device buffers by (position,
+    shape, dtype), the event of its last host-to-device copy, and the
+    event of the last dispatch that read its device buffers."""
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, targets: list) -> None:
         self.bufs: dict = {}
-        self.copied = torch.cuda.Event()
-        self.consumed = torch.cuda.Event()
-        self.device = device
+        self.copied = [torch.cuda.Event() for _ in targets]
+        self.consumed = [torch.cuda.Event() for _ in targets]
+        self.devices = [dev for _lo, _hi, dev in targets]
+        #: targets with a device buffer allocated since their last copy
+        self.fresh: set = set()
 
-    def buffers(self, i: int, arr: np.ndarray) -> tuple:
-        key = (i, arr.shape, arr.dtype)
+    def buffers(self, t: int, i: int, arr: np.ndarray) -> tuple:
+        key = (t, i, arr.shape, arr.dtype)
         if key not in self.bufs:
-            if len(self.bufs) >= 8:      # a caller that keeps changing K
-                self.bufs.clear()
+            if len(self.bufs) >= 8 * len(self.devices):
+                self.bufs.clear()        # a caller that keeps changing K
             dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
             self.bufs[key] = (
                 torch.empty(arr.shape, dtype=dtype, pin_memory=True),
-                torch.empty(arr.shape, dtype=dtype, device=self.device))
+                torch.empty(arr.shape, dtype=dtype,
+                            device=self.devices[t]))
+            self.fresh.add(t)
         return self.bufs[key]
 
 
@@ -72,17 +85,22 @@ class DispatchAheadDriver:
     ``max_in_flight`` dispatches are unobserved does the driver take the
     OLDEST readback, and a take that had to wait counts in
     ``window_syncs``.  Elect schedules are host data and go to
-    ``superstep`` as they are.  ``shardings`` (a device mesh) is not
-    ported: only None is accepted."""
+    ``superstep`` as they are.  A sharded engine's blocks are staged one
+    piece a lane shard; ``shardings``, where given, must be
+    ``superstep_block_shardings`` of the engine's own mesh."""
 
     def __init__(self, engine, max_in_flight: int = 2,
                  shardings: Optional[dict] = None) -> None:
         if max_in_flight < 1:
             raise ValueError("max_in_flight must be >= 1")
+        mesh = engine._mesh
         if shardings is not None:
-            raise NotImplementedError(
-                "mesh not ported: DispatchAheadDriver takes shardings=None "
-                "(ROADMAP.md Queue 1 item 9)")
+            if mesh is None:
+                raise ValueError("shardings given for an engine that is "
+                                 "not sharded (shard_engine_state first)")
+            if any(sh.mesh != mesh for sh in shardings.values()):
+                raise ValueError("the shardings' mesh is not the engine's")
+        self.shardings = shardings or {}
         self.engine = engine
         self.max_in_flight = max_in_flight
         self._staged = None
@@ -99,9 +117,13 @@ class DispatchAheadDriver:
         #: time of the window syncs)
         self.window_wait_s = 0.0
         dev = engine.device
+        #: (lo, hi, device) a staged piece: one a lane shard
+        self._targets = [(0, engine.n_lanes, dev)] if mesh is None else \
+            [(sh.lo, sh.hi, sh.home) for sh in engine._shards]
         if dev.type == "cuda":
-            self._copy_stream = torch.cuda.Stream(dev)
-            self._slots = [_Slot(dev), _Slot(dev)]
+            self._copy_streams = {d: torch.cuda.Stream(d)
+                                  for _lo, _hi, d in self._targets}
+            self._slots = [_Slot(self._targets), _Slot(self._targets)]
             self._next_slot = 0
             self._pool = concurrent.futures.ThreadPoolExecutor(
                 _COPY_THREADS, thread_name_prefix="ra-stage")
@@ -121,21 +143,33 @@ class DispatchAheadDriver:
                        np.asarray(read_blk[1])]
         if self.engine.device.type != "cuda":
             bufs = [torch.from_numpy(np.array(a)) for a in arrays]
+            if len(self._targets) > 1:
+                # a sharded CPU engine: the pieces are views
+                bufs = [LaneParts([b[:, lo:hi] for lo, hi, _d in
+                                   self._targets], 1) for b in bufs]
             return arrays, bufs, None, [], elect_blk, time.monotonic() - t0
         slot = self._slots[self._next_slot]
         self._next_slot ^= 1
         # the pinned buffers are free again once their last copy landed
-        slot.copied.synchronize()
-        bufs = [slot.buffers(i, a) for i, a in enumerate(arrays)]
+        for ev in slot.copied:
+            ev.synchronize()
+        bufs = [[slot.buffers(t, i, a[:, lo:hi])
+                 for t, (lo, hi, _d) in enumerate(self._targets)]
+                for i, a in enumerate(arrays)]
         jobs = []
-        for (host, _dev), a in zip(bufs, arrays):
-            dst = host.numpy()
-            if a.nbytes < _SPLIT_BYTES:
-                np.copyto(dst, a)
-                continue
-            edges = np.linspace(0, a.shape[1], _COPY_THREADS + 1).astype(int)
-            jobs += [self._pool.submit(np.copyto, dst[:, lo:hi], a[:, lo:hi])
-                     for lo, hi in zip(edges[:-1], edges[1:]) if hi > lo]
+        for per_target, a in zip(bufs, arrays):
+            for (host, _dev), (lo, hi, _d) in zip(per_target,
+                                                  self._targets):
+                dst, src = host.numpy(), a[:, lo:hi]
+                if src.nbytes < _SPLIT_BYTES:
+                    np.copyto(dst, src)
+                    continue
+                edges = np.linspace(0, src.shape[1],
+                                    _COPY_THREADS + 1).astype(int)
+                jobs += [self._pool.submit(np.copyto, dst[:, e0:e1],
+                                           src[:, e0:e1])
+                         for e0, e1 in zip(edges[:-1], edges[1:])
+                         if e1 > e0]
         return arrays, bufs, slot, jobs, elect_blk, time.monotonic() - t0
 
     def _finish_stage(self, staging: tuple) -> None:
@@ -147,14 +181,26 @@ class DispatchAheadDriver:
             job.result()
         tensors = bufs
         if slot is not None:
-            with torch.cuda.stream(self._copy_stream):
-                # the device buffers are free once the dispatch that read
-                # them last is done
-                self._copy_stream.wait_event(slot.consumed)
-                for host, dev in bufs:
-                    dev.copy_(host, non_blocking=True)
-                slot.copied.record(self._copy_stream)
-            tensors = [dev for _host, dev in bufs]
+            for t, (_lo, _hi, d) in enumerate(self._targets):
+                stream = self._copy_streams[d]
+                dispatch_stream = torch.cuda.current_stream(d)
+                with torch.cuda.stream(stream):
+                    # the device buffers are free once the dispatch that
+                    # read them last is done; a buffer just allocated came
+                    # from the dispatch stream's pool, where work still
+                    # queued may read the tensor that held it before
+                    if t in slot.fresh:
+                        stream.wait_stream(dispatch_stream)
+                    stream.wait_event(slot.consumed[t])
+                    for per_target in bufs:
+                        host, dev = per_target[t]
+                        dev.copy_(host, non_blocking=True)
+                    slot.copied[t].record(stream)
+            slot.fresh.clear()
+            tensors = [[dev for _host, dev in per_target]
+                       for per_target in bufs]
+            tensors = [ts[0] if len(ts) == 1 else LaneParts(ts, 1)
+                       for ts in tensors]
         # host staging: what the dispatch thread spends on the block's
         # host copy and on starting its device copy
         self.engine.phases.note("host_staging",
@@ -186,13 +232,15 @@ class DispatchAheadDriver:
         tensors, elect_blk, slot = blk
         eng = self.engine
         if slot is not None:
-            torch.cuda.current_stream(eng.device).wait_event(slot.copied)
+            for t, (_lo, _hi, d) in enumerate(self._targets):
+                torch.cuda.current_stream(d).wait_event(slot.copied[t])
         read = len(tensors) == 4
         aux = eng.superstep(tensors[0], tensors[1], elect_blk=elect_blk,
                             n_read_blk=tensors[2] if read else None,
                             read_q_blk=tensors[3] if read else None)
         if slot is not None:
-            slot.consumed.record(torch.cuda.current_stream(eng.device))
+            for t, (_lo, _hi, d) in enumerate(self._targets):
+                slot.consumed[t].record(torch.cuda.current_stream(d))
         h = Readback(aux["committed_lanes"][-1])
         # the ledger counts each readback once, when its copy starts
         devicewatch.record_d2h("driver_watermark", h.nbytes)

@@ -61,8 +61,17 @@ nothing that was ever reported committed.
 
 Checkpointing (:meth:`EngineDurability.checkpoint`) quiesces all shards,
 snapshots the full lane state via ``engine.save`` (atomic .npz), and
-prunes WAL files the checkpoint covers.  A lane mesh is not ported:
-an aux marked ``__mesh__`` raises.
+prunes WAL files the checkpoint covers.
+
+A sharded engine (``parallel.mesh.shard_engine_state``) hands over its
+aux as ``LaneParts``, one piece a lane shard.  Where the WAL shards
+split the lanes as the mesh does (``per_device_wal_shards``), WAL shard
+``i`` reads only lane shard ``i``'s piece, from that shard's device, and
+writes RTB2 blocks at its ``lane_lo``.  Any other layout materialises a
+dispatch's aux on the host once (:class:`_HostAux`): the dispatch thread
+starts every piece's copy, and the encode workers only wait for the
+copies and slice numpy; they launch no device work.  ``open_engine``
+reopens a directory written under any mesh shape, or none.
 """
 from __future__ import annotations
 
@@ -86,6 +95,7 @@ from ..log.wal import Wal, WalDown, scan_wal_file
 from ..metrics import ENGINE_WAL_FIELDS
 from ..readback import Readback
 from ..telemetry import PhaseStats
+from .shards import LaneParts
 
 UID = "__engine__"
 
@@ -165,6 +175,50 @@ def decode_block(data: bytes):
         mask = np.arange(kmax)[None, :] < n_acc[:, None]
         rows[mask] = flat
     return lane_lo, hi, n_app, n_acc, rows
+
+
+class _HostAux:
+    """One dispatch's aux of a sharded engine on the host, for WAL shards
+    that split the lanes otherwise than the mesh.  The copies of every
+    piece start on the dispatch thread (one ``Readback``); the first
+    encode worker to need a step waits for them and joins the pieces into
+    the aux of an unsharded engine (``row_csum`` running over every lane,
+    the accepted rows back to back), the others reuse it.  No device
+    work on a worker thread."""
+
+    def __init__(self, aux: dict, bounds: list, keys: tuple) -> None:
+        self._rb = Readback({(key, i): aux[key].parts[i] for key in keys
+                             for i in range(len(bounds))})
+        self._n = len(bounds)
+        self._lock = threading.Lock()
+        self._steps: dict = {}
+
+    def step(self, j: Optional[int]) -> dict:
+        with self._lock:
+            got = self._steps.get(j)
+            if got is None:
+                got = self._steps[j] = self._join(j)
+            return got
+
+    def _join(self, j: Optional[int]) -> dict:
+        host = self._rb.result()
+
+        def piece(key, i):
+            x = host[(key, i)]
+            return x if j is None else x[j]
+
+        out = {key: np.concatenate([piece(key, i) for i in range(self._n)])
+               for key in ("appended_hi", "n_app", "n_acc")}
+        csums, rows, base = [], [], 0
+        for i in range(self._n):
+            c = piece("row_csum", i).astype(np.int64)
+            total = int(c[-1]) if len(c) else 0
+            rows.append(piece("flat_rows", i)[:total])
+            csums.append(c + base)
+            base += total
+        out["row_csum"] = np.concatenate(csums).astype(np.int32)
+        out["flat_rows"] = np.concatenate(rows)
+        return out
 
 
 class _WalFileRetirer:
@@ -328,23 +382,30 @@ class _WalShard:
         lo, hi_l = self.lo, self.hi
         t_enc = time.monotonic()
         with trace.span("wal.encode", "wal", shard=self.idx, step=step):
-            # the header leaves of the whole dispatch, in flight since
-            # the dispatch thread queued it: wait for the copy to land
-            hdr = job["hdr"].result()
-            j = job["j"]
-
-            def leaf(key):
-                x = hdr[key]
-                return x if j is None else x[j]
-
-            hi = leaf("appended_hi")[lo:hi_l]
-            n_app = leaf("n_app")[lo:hi_l]
-            n_acc = leaf("n_acc")[lo:hi_l]
+            if "host" in job:
+                # another layout than the mesh's: numpy slices of the
+                # dispatch's aux, materialised on the host once
+                blk = job["host"].step(job["j"])
+                off = 0
+            else:
+                # the header leaves of the whole dispatch (or of this
+                # shard's lane shard), in flight since the dispatch
+                # thread queued it: wait for the copy to land
+                blk = job["hdr"].result()
+                if job["j"] is not None:
+                    blk = {key: x[job["j"]] for key, x in blk.items()}
+                off = job["lo"]
+            a, b = lo - off, hi_l - off
+            hi = blk["appended_hi"][a:b]
+            n_app = blk["n_app"][a:b]
+            n_acc = blk["n_acc"][a:b]
             # only this slice's row-offset boundary values are counted
-            csum = leaf("row_csum")[max(0, lo - 1):hi_l]
-            r0 = int(csum[0]) if lo else 0
+            csum = blk["row_csum"][max(0, a - 1):b]
+            r0 = int(csum[0]) if a else 0
             r1 = int(csum[-1])
-            flat = self._pull_rows(job, r0, r1)
+            csum_bytes = 4 * (b - a + (1 if lo else 0))
+            flat = blk["flat_rows"][r0:r1] if "host" in job \
+                else self._pull_rows(job, r0, r1)
             t_blk = time.monotonic()
             blk = encode_block_flat(hi, n_app, n_acc, flat, lane_lo=lo)
             # encode phase stamp: just the block encode+CRC,
@@ -355,7 +416,7 @@ class _WalShard:
         # step's block on this shard (runs off the dispatch thread)
         self.bridge.phases.note("wal_encode", time.monotonic() - t_enc)
         n_s = hi_l - lo
-        k = job["flat"].shape[0] // max(1, self.bridge.n_lanes)
+        k = job["kc"]
         item = flat.dtype.itemsize * (flat.shape[-1] if flat.ndim > 1
                                       else 1)
         base = hi - n_app
@@ -363,7 +424,7 @@ class _WalShard:
         with cond:
             ctr = self.bridge.counters
             ctr["readback_bytes"] += (hi.nbytes + n_app.nbytes +
-                                      n_acc.nbytes + csum.nbytes +
+                                      n_acc.nbytes + csum_bytes +
                                       flat.nbytes)
             # what the pre-compaction full-ring readback moved for the
             # same step slice: the whole [N_s, K, C] host batch
@@ -377,7 +438,7 @@ class _WalShard:
             devicewatch.record_d2h(
                 "wal_readback",
                 hi.nbytes + n_app.nbytes + n_acc.nbytes +
-                csum.nbytes + flat.nbytes)
+                csum_bytes + flat.nbytes)
             self._appended[step] = hi
             self._blocks[step] = blk
             self._bases[step] = base
@@ -417,8 +478,7 @@ class _WalShard:
                 or self._pinned.dtype != flat.dtype:
             # sized for the shard's whole slice of a full step at once:
             # later steps of this geometry never allocate again
-            rows = max(n, (self.hi - self.lo) * (
-                flat.shape[0] // max(1, self.bridge.n_lanes)))
+            rows = max(n, (self.hi - self.lo) * job["kc"])
             self._pinned = torch.empty((rows,) + tuple(flat.shape[1:]),
                                        dtype=flat.dtype, pin_memory=True)
         out = self._pinned[:n]
@@ -693,29 +753,57 @@ class EngineDurability:
     #: aux leaves a WAL record needs per inner step: the header leaves
     #: (read back whole, once a dispatch) and the compacted rows
     _HDR_KEYS = ("appended_hi", "n_app", "n_acc", "row_csum")
+    _BLOCK_KEYS = _HDR_KEYS + ("flat_rows",)
+
+    def _works(self, aux: dict, k: Optional[int], lo: int, n: int) -> list:
+        """The encode jobs of one dispatch's aux for lanes ``[lo, lo +
+        n)``: the header readback started here, and the row tensors as
+        views taken on this (the dispatch) thread."""
+        hdr = Readback({key: aux[key] for key in self._HDR_KEYS})
+        flat = aux["flat_rows"]
+        kc = flat.shape[-2] // max(1, n)
+        if k is None:
+            return [{"hdr": hdr, "j": None, "flat": flat, "lo": lo,
+                     "kc": kc}]
+        return [{"hdr": hdr, "j": j, "flat": flat[j], "lo": lo, "kc": kc}
+                for j in range(k)]
 
     def _enqueue(self, aux: dict, k: Optional[int]) -> None:
         """Start the header readback of one dispatch and queue its
         ``k`` inner steps (None: one single step) on every shard.  No
-        host sync: the readback's copies and event are asynchronous, and
-        the row tensors are views taken on this (the dispatch) thread."""
-        if "__mesh__" in aux:
-            raise NotImplementedError(
-                "mesh not ported: the durable engine takes the aux of a "
-                "single-device engine (ROADMAP.md Queue 1 item 9)")
-        hdr = Readback({key: aux[key] for key in self._HDR_KEYS})
-        flat = aux["flat_rows"]
-        works = [{"hdr": hdr, "j": None, "flat": flat}] if k is None \
-            else [{"hdr": hdr, "j": j, "flat": flat[j]} for j in range(k)]
+        host sync: the readback's copies and events are asynchronous.
+        A sharded engine's aux (``LaneParts``) goes to each WAL shard as
+        its own lane shard's piece where the layouts match, else through
+        one host copy of the whole aux."""
+        parts = aux["appended_hi"]
+        if not isinstance(parts, LaneParts):
+            works = [self._works(aux, k, 0, self.n_lanes)] * \
+                len(self._shards)
+        else:
+            bounds = parts.bounds()
+            if bounds[-1][1] != self.n_lanes:
+                raise ValueError(f"a sharded aux of {bounds[-1][1]} lanes "
+                                 f"for a WAL of {self.n_lanes} lanes")
+            if bounds == [(sh.lo, sh.hi) for sh in self._shards]:
+                works = [self._works(
+                    {key: aux[key].parts[i] for key in self._BLOCK_KEYS},
+                    k, lo, hi - lo) for i, (lo, hi) in enumerate(bounds)]
+            else:
+                host = _HostAux(aux, bounds, self._BLOCK_KEYS)
+                kc = aux["flat_rows"].parts[0].shape[-2] // \
+                    max(1, bounds[0][1] - bounds[0][0])
+                works = [[{"host": host, "j": j, "kc": kc}
+                          for j in ([None] if k is None else range(k))]] * \
+                    len(self._shards)
         t_sub = time.monotonic()
         with self._cond:
             step_lo = self.step_seq + 1
-            for work in works:
+            for j in range(len(works[0])):
                 self.step_seq += 1
                 step = self.step_seq
                 self._submit_ts[step] = t_sub
-                for sh in self._shards:
-                    sh._jobs.append((step, work, t_sub))
+                for sh, shard_works in zip(self._shards, works):
+                    sh._jobs.append((step, shard_works[j], t_sub))
                     sh.unprocessed += 1
             step_hi = self.step_seq
             self._cond.notify_all()

@@ -14,7 +14,8 @@ host.
   immutable).  Before the capture ``fn`` runs once eagerly on a side
   stream, as ``torch.cuda.graph`` requires: that first run also does
   the kernels' one-time host work (module loading, shared-memory
-  attributes) outside the capture.
+  attributes) outside the capture.  The garbage collector is off while
+  a graph is captured: a collection could free another engine's graph.
 * :class:`GraphCache` keeps one graph per shape key, like a jit cache
   keyed by shapes: a new key captures once.  It holds at most
   ``MAX_GRAPHS`` graphs (each owns static inputs, outputs and a private
@@ -31,6 +32,7 @@ There is no eager fallback: a capture that fails raises.
 from __future__ import annotations
 
 import collections
+import gc
 import time
 from typing import Any, Callable
 
@@ -63,8 +65,17 @@ class CapturedCall:
             cur.wait_stream(side)
             before = launch_counts()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.outputs = fn(*self.inputs)
+            # no garbage collection during the capture: collecting a dead
+            # engine would free its graphs and events, CUDA calls that
+            # invalidate a capture in progress
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph):
+                    self.outputs = fn(*self.inputs)
+            finally:
+                if collecting:
+                    gc.enable()
             after = launch_counts()
         #: device bytes the graph holds between replays: its static
         #: inputs and its outputs (its pool's free blocks not counted)

@@ -43,6 +43,7 @@ fold (``_apply_sequential``).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, NamedTuple, Optional
 
@@ -62,6 +63,7 @@ from ..ops.quorum import election_quorum, pipeline_credit
 from ..readback import Readback
 from ..telemetry import PhaseStats
 from .graph import GraphCache
+from .shards import LaneParts, LaneShard, member_leaf_mask, split_bounds
 
 Tensor = torch.Tensor
 I32 = torch.int32
@@ -596,9 +598,10 @@ def _telemetry_summary(telem: LaneTelemetry, total_committed: Tensor,
     log2-bucket commit-lag histogram and the ``top_k`` offender lanes.
     Its size does not depend on the lane count, so the sampler's
     readback is a few hundred bytes.  The dtypes are the reference's:
-    float32 sums and means, int32 counts and lane ids.  ``torch.topk``
-    breaks ties otherwise than ``lax.top_k``: lanes of equal score may
-    come in another order."""
+    float32 sums and means, int32 counts and lane ids.  The offenders
+    come from a stable descending sort, so that lanes of equal score keep
+    the lower lane id first, as ``lax.top_k``'s do (``torch.topk`` may
+    pick another set of tied lanes)."""
     f32, i32 = torch.float32, torch.int32
     lag = telem.commit_lag
     stalled = telem.stall_steps >= stall_threshold
@@ -606,7 +609,7 @@ def _telemetry_summary(telem: LaneTelemetry, total_committed: Tensor,
     # clipped so that the packed int32 score cannot overflow
     score = (torch.clamp(telem.stall_steps, 0, (1 << 15) - 1) * (1 << 15)
              + torch.clamp(lag + telem.apply_lag, 0, (1 << 15) - 1))
-    top_idx = torch.topk(score, top_k).indices
+    top_idx = torch.sort(score, descending=True, stable=True).indices[:top_k]
     # bucket b holds lags in [2^(b-1), 2^b) (bucket 0: lag 0); the last
     # bucket takes the tail
     bucket = torch.clamp(
@@ -640,6 +643,55 @@ def _telemetry_summary(telem: LaneTelemetry, total_committed: Tensor,
     }
 
 
+def merge_telemetry_summaries(parts: list, top_k: int) -> dict:
+    """One ``_telemetry_summary`` of a sharded engine from its shards'
+    (host numpy, each ``(lo, n, summary)`` with ``lo`` the shard's first
+    lane and ``n`` its lane count): counts, sums and the histogram add
+    up, the extremes take the extreme, the means weigh by lane count, and
+    the offenders merge into global lane ids, ties to the lower lane id.
+    Integer fields are exact; the float32 sums and means may differ from
+    a one-device summary in the order of summation."""
+    f32, i32 = np.float32, np.int32
+    summ = [s for _lo, _n, s in parts]
+    n_all = sum(n for _lo, n, _s in parts)
+
+    def fsum(key):
+        return f32(sum(float(s[key]) for s in summ))
+
+    def fmean(key):
+        return f32(sum(float(s[key]) * n for _lo, n, s in parts) / n_all)
+
+    lanes = np.concatenate([s["top_lanes"].astype(np.int64) + lo
+                            for lo, _n, s in parts])
+    cols = {k: np.concatenate([s[k] for s in summ])
+            for k in ("top_commit_lag", "top_apply_lag", "top_stall_steps")}
+    cap = (1 << 15) - 1
+    score = (np.clip(cols["top_stall_steps"].astype(np.int64), 0, cap)
+             * (1 << 15) + np.clip(cols["top_commit_lag"].astype(np.int64)
+                                   + cols["top_apply_lag"], 0, cap))
+    pick = np.lexsort((lanes, -score))[:top_k]
+    out = {
+        "steps": max(s["steps"] for s in summ),
+        "elections_requested": fsum("elections_requested"),
+        "elections_won": fsum("elections_won"),
+        "leader_changes": fsum("leader_changes"),
+        "stalled_lanes": i32(sum(int(s["stalled_lanes"]) for s in summ)),
+        "commit_lag_max": max(s["commit_lag_max"] for s in summ),
+        "commit_lag_mean": fmean("commit_lag_mean"),
+        "apply_lag_max": max(s["apply_lag_max"] for s in summ),
+        "apply_lag_mean": fmean("apply_lag_mean"),
+        "leader_age_min": min(s["leader_age_min"] for s in summ),
+        "commit_lag_hist": np.sum([s["commit_lag_hist"] for s in summ],
+                                  axis=0, dtype=i32),
+        "top_lanes": lanes[pick].astype(i32),
+        **{k: v[pick] for k, v in cols.items()},
+    }
+    for key in ("committed_total", "read_served_total", "read_shed_total",
+                "read_stale_total", "read_leased_total"):
+        out[key] = fsum(key)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 def telemetry_summary_fn(top_k: int = 8, hist_buckets: int = 16,
                          stall_threshold: int = 8):
     """``_telemetry_summary`` with its aggregation geometry bound:
@@ -657,7 +709,15 @@ def _dtype(name: str) -> torch.dtype:
 class LockstepEngine:
     """Host API around the lockstep step.  Runs on ``device``: ``None``
     means the CUDA card (and raises where there is none); ``"cpu"`` runs
-    the plain torch path on the CPU."""
+    the plain torch path on the CPU.
+
+    ``parallel.mesh.shard_engine_state`` shards an engine over a
+    ``(members, lanes)`` mesh (``engine/shards.py``): every dispatch then
+    runs the same step once a lane shard, on the shard's home device, and
+    returns its aux as ``LaneParts``.  ``state`` still reads (and
+    assigns) the whole ``LaneState`` on the mesh's first device, joined
+    from the shards, so that the host-facing methods work unchanged; the
+    dispatch path never joins it."""
 
     def __init__(self, machine: JitMachine, n_lanes: int, n_members: int = 3,
                  *, ring_capacity: int = 1024, max_step_cmds: int = 64,
@@ -669,6 +729,10 @@ class LockstepEngine:
         self.device = resolve_device(device)
         machine.check_device(self.device)
         self.machine = machine
+        #: the device mesh and its lane shards (``shard_engine_state``)
+        self._mesh = None
+        self._shards: Optional[list] = None
+        self._state_joined = None
         self.n_lanes = n_lanes
         self.n_members = n_members
         if ring_capacity < max_step_cmds + 3:
@@ -742,6 +806,72 @@ class LockstepEngine:
             dtype=self.query_dtype, device=dev)
         self._fail_host = np.zeros((n_lanes, n_members), bool)
 
+    @property
+    def state(self) -> LaneState:
+        """The whole lane state.  On a sharded engine it is joined from
+        the shards onto the mesh's first device (kept until the next
+        dispatch), and an assignment places it over the shards again."""
+        if self._shards is None:
+            return self._state
+        if self._state_joined is None:
+            parts = [sh.gather() for sh in self._shards]
+            self._state_joined = tree_unflatten(parts[0], (
+                torch.cat([leaf.to(self.device) for leaf in leaves], 0)
+                for leaves in zip(*(tree_leaves(p) for p in parts))))
+        return self._state_joined
+
+    @state.setter
+    def state(self, value: LaneState) -> None:
+        if self._shards is None:
+            self._state = value
+            return
+        for sh in self._shards:
+            sh.place(tree_map(lambda x: x[sh.lo:sh.hi], value))
+        self._state_joined = value
+
+    def _shard(self, mesh) -> None:
+        """Place the state over ``mesh`` (``parallel.mesh.LaneMesh``):
+        one ``LaneShard`` a lane slot, each with its zero inputs and, on a
+        card, its own graph cache."""
+        m, n_l = mesh.devices.shape
+        if n_l > self.n_lanes or m > self.n_members:
+            raise ValueError(
+                f"a {m}x{n_l} mesh needs at least {n_l} lanes and {m} "
+                f"members; the engine has {self.n_lanes} x {self.n_members}")
+        kinds = {d.type for d in mesh.devices.flat}
+        if kinds != {self.device.type}:
+            raise ValueError(f"the mesh's devices ({sorted(kinds)}) are not "
+                             f"the engine's ({self.device.type})")
+        whole = self.state
+        mask = member_leaf_mask(whole)
+        shards = []
+        for j, (lo, hi) in enumerate(split_bounds(self.n_lanes, n_l)):
+            home = mesh.devices[0, j]
+            n = hi - lo
+            zeros = {
+                "fail": torch.zeros((n, self.n_members), dtype=torch.bool,
+                                    device=home),
+                "elect": torch.zeros((n,), dtype=torch.bool, device=home),
+                "nread": torch.zeros((n,), dtype=I32, device=home),
+                "readq": torch.zeros((n, self.read_window, self.query_width),
+                                     dtype=self.query_dtype, device=home)}
+            shards.append(LaneShard(j, lo, hi, list(mesh.devices[:, j]),
+                                    self.n_members, mask, zeros))
+        self._mesh = mesh
+        self._shards = shards
+        self.device = mesh.devices[0, 0]
+        self.state = whole
+        self._graphs = None
+
+    def lane_shard_states(self) -> list:
+        """``[(lo, n, state), ...]``: each lane shard's first lane, lane
+        count and home ``LaneState`` (lane-local leaves whole, member
+        leaves possibly narrowed); one entry, the whole state, when the
+        engine is not sharded."""
+        if self._shards is None:
+            return [(0, self.n_lanes, self._state)]
+        return [(sh.lo, sh.n, sh.state) for sh in self._shards]
+
     def attach_durability(self, dur) -> None:
         """Switch the engine into durable mode: ``dur`` (an
         ``engine.durable.EngineDurability``) supplies the per-lane WAL
@@ -754,6 +884,9 @@ class LockstepEngine:
         self._step_kwargs["durable"] = True
         if self._graphs is not None:
             self._graphs = GraphCache()
+        for sh in self._shards or ():
+            if sh.graphs is not None:
+                sh.graphs = GraphCache()
 
     # -- driving -----------------------------------------------------------
 
@@ -790,7 +923,11 @@ class LockstepEngine:
         consistent-read batches.  In durable mode the step waits out the
         WAL's backpressure window, gates its commits on the confirm
         horizon, and hands its compacted accepted rows to the WAL shards.
-        Returns the step aux (device tensors)."""
+        Returns the step aux (device tensors; ``LaneParts`` on a sharded
+        engine)."""
+        if self._shards is not None:
+            return self._sharded_dispatch(None, n_new, payloads, elect_mask,
+                                          query_mask, n_read, read_q)
         fail = self._fail_mask()
         elect, elect_any = (self._zero_elect, False) if elect_mask is None \
             else self._host_mask(elect_mask)
@@ -839,7 +976,14 @@ class LockstepEngine:
         K steps.
         Returns the stacked per-inner-step aux (device tensors, a leading
         [K] axis on every leaf); ``committed_lanes`` [K, N] is the
-        cumulative committed watermark after each inner step."""
+        cumulative committed watermark after each inner step.  On a
+        sharded engine every input may be ``LaneParts`` already staged on
+        the shards' devices (the driver's blocks), and every aux leaf is
+        ``LaneParts`` with the lanes on axis 1."""
+        if self._shards is not None:
+            return self._sharded_dispatch(int(n_new_blk.shape[0]), n_new_blk,
+                                          payloads_blk, elect_blk, query_blk,
+                                          n_read_blk, read_q_blk)
         n_new = self._dev(n_new_blk, I32)
         payloads = self._dev(payloads_blk, self.payload_dtype)
         k, N = n_new.shape[0], self.n_lanes
@@ -868,8 +1012,8 @@ class LockstepEngine:
                                              nr, rq, **self._step_kwargs)
             else:
                 self.state, aux = self._graph_superstep(
-                    n_new, payloads, fail, elect, confirm, query, nr, rq,
-                    reads)
+                    self.state, self._graphs, self.device, n_new, payloads,
+                    fail, elect, confirm, query, nr, rq, reads)
         if dur is not None:
             with trace.span("engine.wal_submit", "engine", k=k):
                 dur.submit_block(aux, k)
@@ -889,15 +1033,101 @@ class LockstepEngine:
             self._dur.backpressure()
         return self._dev(self._dur.confirm_upto, I32)
 
-    def _graph_superstep(self, n_new, payloads, fail, elect, confirm, query,
-                         nr, rq, reads: bool):
-        """``_superstep`` as one replay of its captured CUDA graph.
-        Without reads the zero read schedule is part of the graph, not an
-        input copied in every dispatch.  Before a capture a durable engine
-        drains its WAL shards: their workers copy rows off the device,
-        and no other thread may touch the device while one captures."""
+    def _sharded_dispatch(self, k: Optional[int], n_new, payloads, elect,
+                          query, n_read, read_q) -> dict:
+        """One ``step`` (``k`` None) or ``superstep`` of a sharded engine:
+        the step runs once a lane shard, back to back from this thread,
+        each on its home device's current stream, so that shards on
+        distinct cards overlap.  Host masks, the fail mask and the durable
+        confirm horizon are sliced by the shards' lanes."""
+        block = k is not None
+        steps = k if block else 1
+        ax = 1 if block else 0
+        reads = n_read is not None or read_q is not None
+        elect_host = None if elect is None else \
+            np.asarray(elect)  # ra02-ok: host data by contract
+        elect_any = elect_host is not None and bool(elect_host.any())
+        pc = self.pipeline_counters
+        pc["dispatches"] += 1
+        pc["inner_steps"] += steps
+        if block:
+            pc["superstep_dispatches"] += 1
+            self._superstep_k_last = k
+        dur = self._dur
+        confirm = None
+        if dur is not None:
+            with trace.span("engine.backpressure", "engine"):
+                dur.backpressure()
+            confirm = dur.confirm_upto
+        kind = "engine.superstep" if block else "engine.step"
+        with trace.span(kind, "engine", durable=dur is not None, k=steps,
+                        shards=len(self._shards)):
+            auxes = [self._shard_dispatch(sh, k, n_new, payloads, elect_host,
+                                          confirm, query, n_read, read_q,
+                                          reads)
+                     for sh in self._shards]
+        self._state_joined = None
+        aux = {key: LaneParts([a[key] for a in auxes], ax)
+               for key in auxes[0]}
+        if dur is not None:
+            with trace.span("engine.wal_submit", "engine", k=steps):
+                if block:
+                    dur.submit_block(aux, k)
+                else:
+                    dur.submit(aux)
+            if elect_any:
+                dur.drain_all()
+        if self._telemetry is not None:
+            self._telemetry.tick(steps)
+        return aux
+
+    def _shard_dispatch(self, sh: LaneShard, k: Optional[int], n_new,
+                        payloads, elect, confirm, query, n_read, read_q,
+                        reads: bool) -> dict:
+        """One lane shard's part of a dispatch, on its home device: its
+        lanes of every input, the member gather, the step (eager on the
+        CPU or for a single step, else the shard's captured graph) and
+        the member scatter.  Returns the shard's aux."""
+        block = k is not None
+        ax = 1 if block else 0
+        z = sh.zeros
+
+        def zb(t):
+            return t.expand((k,) + t.shape) if block else t
+        with trace.span("engine.shard", "engine", shard=sh.index), \
+                torch.cuda.device(sh.home) if sh.home.type == "cuda" \
+                else contextlib.nullcontext():
+            fail = sh.take(self._fail_host, 0, torch.bool) \
+                if self._fail_host[sh.lo:sh.hi].any() else z["fail"]
+            args = (sh.take(n_new, ax, I32),
+                    sh.take(payloads, ax, self.payload_dtype), fail,
+                    sh.take(elect, ax, torch.bool, zb(z["elect"])),
+                    z["nread"] if confirm is None
+                    else sh.take(confirm, 0, I32),
+                    sh.take(query, ax, torch.bool, zb(z["elect"])),
+                    sh.take(n_read, ax, I32, zb(z["nread"])),
+                    sh.take(read_q, ax, self.query_dtype, zb(z["readq"])))
+            st = sh.gather()
+            if not block:
+                new, aux = _step(st, *args, **self._step_kwargs)
+            elif sh.graphs is None:
+                new, aux = _superstep(st, *args, **self._step_kwargs)
+            else:
+                new, aux = self._graph_superstep(
+                    st, sh.graphs, sh.home, *args, reads)
+            sh.scatter(new)
+        return aux
+
+    def _graph_superstep(self, state, graphs, device, n_new, payloads, fail,
+                         elect, confirm, query, nr, rq, reads: bool):
+        """``_superstep`` of ``state`` as one replay of its CUDA graph in
+        ``graphs`` (on ``device``).  Without reads the zero read schedule
+        is part of the graph, not an input copied in every dispatch.
+        Before a capture a durable engine drains its WAL shards: their
+        workers copy rows off the device, and no other thread may touch
+        the device while one captures."""
         durable = self._dur is not None
-        args = (self.state, n_new, payloads, fail, elect, confirm, query)
+        args = (state, n_new, payloads, fail, elect, confirm, query)
         if reads:
             args += (nr, rq)
             fn = functools.partial(_superstep, **self._step_kwargs)
@@ -906,10 +1136,10 @@ class LockstepEngine:
                                    **self._step_kwargs)
         k = n_new.shape[0]
         key = (k, payloads.shape[2], reads, durable)
-        if durable and key not in self._graphs:
+        if durable and key not in graphs:
             self._dur.drain_all()
-        g = self._graphs.get(
-            key, fn, args, self.device,
+        g = graphs.get(
+            key, fn, args, device,
             lambda: {"commit_phase": commit_phase.LAUNCHES,
                      "evaluate_quorum": pallas_quorum.LAUNCHES,
                      "slot_fold": slot_fold.LAUNCHES,
@@ -1190,24 +1420,33 @@ class LockstepEngine:
     # -- readback ----------------------------------------------------------
 
     def mesh_shape(self) -> str:
-        """The device-mesh stamp, ``"<members>x<lanes>"`` for a sharded
-        engine in the reference; the port runs on one device, so ``""``,
-        the reference's value for an unsharded engine."""
-        return ""
+        """The device-mesh stamp: ``"<members>x<lanes>"`` for a sharded
+        engine, ``""`` for one that is not."""
+        if self._mesh is None:
+            return ""
+        shape = self._mesh.shape
+        return f"{shape['members']}x{shape['lanes']}"
+
+    def _committed_parts(self):
+        """``total_committed``, as one tensor or as ``LaneParts``."""
+        parts = [st.total_committed for _lo, _n, st in
+                 self.lane_shard_states()]
+        return parts[0] if len(parts) == 1 else LaneParts(parts, 0)
 
     def committed_total(self) -> int:
         # per-lane counters are int32; the node-wide sum can exceed 2^31
-        return int(self.state.total_committed.cpu().numpy()
-                   .astype(np.int64).sum())
+        return int(self.committed_per_lane().astype(np.int64).sum())
 
     def committed_per_lane(self) -> np.ndarray:
-        return self.state.total_committed.cpu().numpy()
+        return np.asarray(self._committed_parts().cpu())
 
     def committed_lanes_async(self) -> Readback:
         """Per-lane cumulative committed counts with the host copy already
         in flight: poll ``.is_ready()``, then ``np.asarray`` it.  The next
-        ``step`` can be dispatched at once."""
-        h = Readback(self.state.total_committed)
+        ``step`` can be dispatched at once.  On a sharded engine each
+        shard copies into its own pinned buffer, and the handle is ready
+        when all are."""
+        h = Readback(self._committed_parts())
         # the transfer ledger counts the copy when it starts
         devicewatch.record_d2h("lanes_async", h.nbytes)
         return h
@@ -1216,9 +1455,13 @@ class LockstepEngine:
         return tree_map(lambda x: x.cpu().numpy(), self.state.mac)
 
     def block_until_ready(self) -> None:
-        """Wait until the device has finished everything dispatched."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait until the device (every device of the mesh) has finished
+        everything dispatched."""
+        devices = {self.device} if self._mesh is None \
+            else set(self._mesh.devices.flat)
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def overview(self, lane: int = 0) -> dict:
         s = self.state

@@ -24,7 +24,8 @@ as the driver's async committed-watermark readbacks land (no
 per-command host work anywhere past admission).  The plane runs on the
 engine's device: it reads the engine's state on the host once, when it
 is built, and at pump and harvest time only the driver's asynchronous
-readbacks.  A sharded engine (a device mesh) is not ported.
+readbacks.  Over a sharded engine the plane's driver stages each block
+one piece a lane shard, straight onto the shards' devices.
 
 Quickstart::
 
@@ -94,13 +95,10 @@ class IngressPlane:
                                    soft_credit=soft_credit,
                                    hard_credit=hard_credit,
                                    tenant_quota=tenant_quota)
-        if shardings is not None or \
-                getattr(engine, "_mesh", None) is not None:
-            # the reference stages a sharded engine's blocks
-            # pre-partitioned against its mesh
-            raise NotImplementedError(
-                "mesh not ported: IngressPlane takes an engine on one "
-                "device and shardings=None")
+        if shardings is None and engine._mesh is not None:
+            # a sharded engine's blocks are staged one piece a lane shard
+            from ..parallel.mesh import superstep_block_shardings
+            shardings = superstep_block_shardings(engine._mesh)
         self.driver = DispatchAheadDriver(engine,
                                           max_in_flight=max_in_flight,
                                           shardings=shardings)
@@ -120,7 +118,8 @@ class IngressPlane:
         # commit baseline: election noops also advance total_committed,
         # so the release join is >=, never ==, and credit may release a
         # hair early around an election — flow control, not correctness
-        self._base_committed = _host(engine.state.total_committed)
+        self._base_committed = \
+            engine.committed_per_lane().astype(np.int64)
         self._shedding = False
         # -- vectorized read lane ---------------------------
         # A second, read-side CoalesceWindow stages consistent reads

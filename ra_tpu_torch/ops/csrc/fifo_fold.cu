@@ -75,6 +75,7 @@ namespace {
 
 constexpr int kMaxCheckout = 32;    // the largest K the kernel takes
 constexpr int kSmemPerBlock = 232448;  // sm_90: 227 KB a block, by opt-in
+constexpr int kMaxDevices = 64;       // devices a process opts in on
 // the longest ring kept in shared memory: one row's three rings, padded
 // (choose_layout), fit a block at every G
 constexpr int kMaxSharedRing = 19328;
@@ -718,13 +719,20 @@ int launch(const RaFifoFoldArgs& a, cudaStream_t stream) {
   size_t smem = 0;
   const Layout lay = choose_layout(a, G, &smem);
   if (lay.rows_per_block < 1) return (int)cudaErrorInvalidValue;
-  static size_t opted = 48 * 1024;
-  if (smem > opted) {
+  // the opt-in is an attribute of the kernel on each device: keep it
+  // per device, or a launch on a second card goes above 48 KB
+  // without it
+  static size_t opted[kMaxDevices];
+  int dev = 0;
+  const cudaError_t ge = cudaGetDevice(&dev);
+  if (ge != cudaSuccess) return (int)ge;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > opted[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
         fifo_fold_kernel<G, Cons, true>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    opted = smem;
+    opted[dev] = smem;
   }
   const long long rows = (long long)a.n * a.p;
   const unsigned blocks =

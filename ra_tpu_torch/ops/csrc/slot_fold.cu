@@ -68,6 +68,7 @@ constexpr int kBatch = 8;            // commands loaded a batch ahead
 constexpr int kSmemPerSm = 233472;   // sm_90: 228 KB of shared memory an SM
 constexpr int kSmemPerBlock = 232448;  // 227 KB a block, by opt-in
 constexpr int kSmemReserved = 1024;    // the runtime's share of a block
+constexpr int kMaxDevices = 64;       // devices a process opts in on
 enum Kind { kRegisters = 0, kKv = 1, kTtlKv = 2, kStream = 3 };
 
 __device__ __forceinline__ int wrap_add(int a, int b) {
@@ -381,13 +382,20 @@ int launch(const RaSlotFoldArgs& a, cudaStream_t stream) {
   if (!in_smem) rows_per_block = kMaxRows;
   const size_t smem =
       in_smem ? smem_bytes(KIND, a, rows_per_block) : 0;
-  static size_t opted = 48 * 1024;
-  if (smem > opted) {
+  // the opt-in is an attribute of the kernel on each device: keep it
+  // per device, or a launch on a second card goes above 48 KB
+  // without it
+  static size_t opted[kMaxDevices];
+  int dev = 0;
+  const cudaError_t ge = cudaGetDevice(&dev);
+  if (ge != cudaSuccess) return (int)ge;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > opted[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
         slot_fold_kernel<KIND, true>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    opted = smem;
+    opted[dev] = smem;
   }
   const int vec_cmds =
       a.c >= 4 && a.cmd_stride[3] == 1 && a.cmd_stride[2] % 4 == 0 &&

@@ -11,7 +11,10 @@ The port's own copy of ``ra_tpu/telemetry.py``:
   aggregates the engine's per-lane ``LaneTelemetry`` on the device
   (``engine.lockstep.telemetry_summary_fn``) and starts an asynchronous
   copy of the few-hundred-byte result (a ``readback.Readback``); ready
-  copies are harvested on later ticks.  The dispatch loop never blocks
+  copies are harvested on later ticks.  On a sharded engine each lane
+  shard's summary runs on its own device, all copied in one readback,
+  and the harvest merges them (``merge_telemetry_summaries``: global
+  lane ids, ties to the lower lane id).  The dispatch loop never blocks
   on it.  A harvest also takes the device-memory census
   (``devicewatch.sample_watermarks``, throttled) and feeds the installed
   tracer a ``lane_health`` counter track.
@@ -182,17 +185,25 @@ class TelemetrySampler:
         self._harvest(block=False)
 
     def _start_sample(self) -> None:
-        st = self.engine.state
-        out = self._fn(st.telem, st.total_committed,
-                       (st.read_served, st.read_shed, st.read_stale,
-                        st.read_leased))
+        from .engine.lockstep import telemetry_summary_fn
+        shards = self.engine.lane_shard_states()
+        out = {}
+        for j, (_lo, n, st) in enumerate(shards):
+            fn = self._fn if len(shards) == 1 else telemetry_summary_fn(
+                min(self.top_k, n), self.hist_buckets, self.stall_threshold)
+            got = fn(st.telem, st.total_committed,
+                     (st.read_served, st.read_shed, st.read_stale,
+                      st.read_leased))
+            out.update(got if len(shards) == 1
+                       else {(j, k): v for k, v in got.items()})
         h = Readback(out)
         # the transfer ledger counts the copies when they start
         devicewatch.record_d2h("sampler_harvest", h.nbytes,
                                events=len(out))
         self.counters["samples_started"] += 1
         self._pending.append(
-            (time.time(), self.engine.pipeline_counters["inner_steps"], h))
+            (time.time(), self.engine.pipeline_counters["inner_steps"], h,
+             [(lo, n) for lo, n, _st in shards]))
         while len(self._pending) > self.max_pending:
             # never wait on a slow copy: drop the oldest sample instead
             self._pending.popleft()
@@ -200,13 +211,19 @@ class TelemetrySampler:
 
     def _harvest(self, block: bool) -> None:
         while self._pending:
-            ts, steps, h = self._pending[0]
+            ts, steps, h, shards = self._pending[0]
             if not h.is_ready():
                 if not block:
                     return
                 self.counters["blocking_waits"] += 1
             self._pending.popleft()
-            snap = {k: _host_value(v) for k, v in h.result().items()}
+            res = h.result()
+            if len(shards) > 1:
+                from .engine.lockstep import merge_telemetry_summaries
+                res = merge_telemetry_summaries(
+                    [(lo, n, {k: v for (j, k), v in res.items() if j == i})
+                     for i, (lo, n) in enumerate(shards)], self.top_k)
+            snap = {k: _host_value(v) for k, v in res.items()}
             snap["ts"] = ts
             snap["inner_steps_at_sample"] = steps
             snap["stall_threshold"] = self.stall_threshold

@@ -15,8 +15,9 @@ exactly once (machine-level dedup absorbs the storm's duplicate rows),
 every ranked op acked.  The tail row carries ``wire_cmds_per_s``,
 ``wire_shed_rate`` and ``wire_reconnect_recovery_s``.
 
-Left out of the reference's rung: the sharded engine (``mesh=True``
-raises).
+``mesh=True`` shards the engine over ``lane_mesh(member_axis=1)`` (one
+slot a visible card), a ``LaneMesh`` over that mesh, with one WAL shard
+a lane slot on the durable variant (``per_device_wal_shards``).
 
 Transports: ``socket_conns`` real-socket ``WireClient``s against the
 TCP listener ride beside the loopback fleet, which shares every byte of
@@ -45,7 +46,7 @@ def run_wire_soak(seed: int, *, conns: int = 10_000,
                   storm_frac: float = 0.25,
                   storm_wave: Optional[int] = None,
                   ring_records: int = 32, tenants: int = 16,
-                  mesh: bool = False, device=None,
+                  mesh=False, device=None,
                   on_wave: Optional[Callable[[int], None]] = None) -> dict:
     """One ladder rung; returns a bench-comparable tail row.  See the
     module docstring for the scenario.  ``device`` is the engine's
@@ -55,9 +56,13 @@ def run_wire_soak(seed: int, *, conns: int = 10_000,
     from ..engine import LockstepEngine
     from ..ingress import IngressPlane
     from ..transport.rpc import FaultPlan, FaultSpec
+    device_mesh = None
     if mesh:
-        raise NotImplementedError("mesh not ported: run_wire_soak takes "
-                                  "mesh=False")
+        from ..parallel.mesh import (lane_mesh, per_device_wal_shards,
+                                     shard_engine_state)
+        device_mesh = lane_mesh(member_axis=1) if mesh is True else mesh
+        if durable_dir is not None:
+            wal_shards = per_device_wal_shards(device_mesh)
     rng = np.random.default_rng(seed)
     sessions = conns * sessions_per_conn + socket_conns
     slots = 4 * max(1, sessions // lanes) + 64
@@ -71,6 +76,8 @@ def run_wire_soak(seed: int, *, conns: int = 10_000,
     else:
         eng = LockstepEngine(machine, lanes, 3, ring_capacity=ring,
                              max_step_cmds=cmds, device=device)
+    if device_mesh is not None:
+        shard_engine_state(eng, device_mesh)
     disk_plan = None
     net_plan = FaultPlan(seed=seed, default=FaultSpec(drop=0.1))
     if disk_faults:

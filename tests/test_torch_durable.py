@@ -576,9 +576,16 @@ def test_recover_revives_failed_member_by_snapshot(tmp_path):
 
 
 def test_unported_mesh_aux_raises(tmp_path):
+    """A sharded aux whose lane pieces do not add up to the bridge's
+    lanes is refused before anything is queued."""
+    from ra_tpu_torch.engine.shards import LaneParts
     eng = make_engine(tmp_path)
-    with pytest.raises(NotImplementedError, match="mesh not ported"):
-        eng._dur.submit({"__mesh__": True})
+    piece = torch.zeros((N - 1,), dtype=torch.int32)
+    aux = {k: LaneParts([piece], 0) for k in
+           ("appended_hi", "n_app", "n_acc", "row_csum", "flat_rows")}
+    with pytest.raises(ValueError, match="lanes"):
+        eng._dur.submit(aux)
+    assert eng._dur.step_seq == 0
     eng.close()
 
 

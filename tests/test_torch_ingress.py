@@ -199,13 +199,14 @@ def test_durable_plane_matches_reference(tmp_path):
 
 def test_bench_tail_keys_and_refusals():
     """``bench_tail_keys`` carries the reference's keys (no card here:
-    no peak memory); a plane over a mesh is refused."""
+    no peak memory); shardings for an engine that is not sharded are
+    refused."""
     keys = devicewatch.bench_tail_keys(commands=10)
     assert set(keys) == {"n_compiles", "n_recompiles", "compile_time_s",
                          "transfer_bytes", "peak_live_bytes",
                          "transfer_bytes_per_cmd"}
     assert keys["peak_live_bytes"] == 0 or torch.cuda.is_initialized()
     eng = port_lockstep.LockstepEngine(CounterMachine(), 4, 3, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh not ported"):
+    with pytest.raises(ValueError, match="not sharded"):
         IngressPlane(eng, shardings={})
     assert eng._ingress is None

@@ -36,8 +36,9 @@ def _imported_modules(path):
 def test_port_files_found():
     files = _port_files()
     assert len(files) >= 12
-    assert any(f.endswith(os.path.join("engine", "lockstep.py"))
-               for f in files)
+    for tail in (("engine", "lockstep.py"), ("parallel", "mesh.py"),
+                 ("engine", "shards.py"), ("entry.py",)):
+        assert any(f.endswith(os.path.join(*tail)) for f in files), tail
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -54,7 +55,9 @@ def test_importing_the_port_loads_no_jax():
             "ra_tpu_torch.ops.commit_phase, ra_tpu_torch.engine.durable, "
             "ra_tpu_torch.wal_probe, ra_tpu_torch.models, "
             "ra_tpu_torch.ingress, ra_tpu_torch.wire, "
-            "ra_tpu_torch.wire.soak\n"
+            "ra_tpu_torch.wire.soak, ra_tpu_torch.parallel, "
+            "ra_tpu_torch.parallel.mesh, ra_tpu_torch.engine.shards, "
+            "ra_tpu_torch.entry\n"
             "ra_tpu_torch.LockstepEngine, ra_tpu_torch.open_engine\n"
             "from ra_tpu_torch import native\n"
             "assert not native.IO._loaded   # no g++ at import\n"

@@ -128,6 +128,24 @@ def test_prometheus_parser_matches_reference(text, ok):
         assert got[("ra_tpu_inf", "")] == float("inf")
 
 
+def settle_reference_samples(sampler):
+    """Make each of the reference sampler's readbacks land when it
+    starts, as the port's do on the CPU (a copy from a CPU tensor is made
+    at once).  JAX dispatches asynchronously and torch on the CPU does
+    not: without this, whether the reference's ``drain()`` finds its
+    samples ready, and so its ``blocking_waits``, depends on how busy
+    the host is."""
+    import jax
+
+    start = sampler._start_sample
+
+    def start_settled():
+        start()
+        jax.block_until_ready(sampler._pending[-1][2])
+
+    sampler._start_sample = start_settled
+
+
 def test_prometheus_round_trip_on_engines(clock):
     """Sampled engines of both packages: the same flat names and values
     in the exposition (commit-lag family included), and the port's
@@ -136,6 +154,8 @@ def test_prometheus_round_trip_on_engines(clock):
     for pkg, mod in TEL.items():
         eng = mk_engine(pkg)
         s = mod.TelemetrySampler(eng, cadence_steps=4)
+        if pkg == "ref":
+            settle_reference_samples(s)
         for _ in range(8):
             eng.uniform_step(2)
         s.drain()
@@ -168,6 +188,8 @@ def drive_pair(clock):
         clock.t = 1_000_000.0
         eng = mk_engine(pkg)
         s = mod.TelemetrySampler(eng, cadence_steps=4)
+        if pkg == "ref":
+            settle_reference_samples(s)
         obs = mod.Observatory.for_engine(eng, sampler=s)
         for window in range(3):
             for _ in range(4 + 2 * window):

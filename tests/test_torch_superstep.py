@@ -240,7 +240,8 @@ def test_uniform_superstep_and_readback_match_reference():
 
 def test_unported_options_raise():
     port = LockstepEngine(CounterMachine(), 8, 3, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh not ported"):
+    # shardings only for an engine sharded over their mesh
+    with pytest.raises(ValueError, match="not sharded"):
         DispatchAheadDriver(port, shardings={})
     with pytest.raises(ValueError, match="max_in_flight"):
         DispatchAheadDriver(port, max_in_flight=0)
