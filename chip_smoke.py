@@ -175,6 +175,30 @@ non-zero (there is no CPU path and no fallback to a plain version):
              a plain model of the mix; open_engine with one WAL shard a
              lane shard under a 1x4 mesh: committed equal to the logs
              rebuilt from the WAL, checkpoint and an equal reopen
+  classic_parity
+             the classic replicated plane with JitMachines on the card:
+             RegisterMachine(8), JitKvMachine(16) and
+             JitFifoMachine(capacity=16), each a cluster of three members
+             co-hosted on one RaNode over one RaSystem (WAL under build/),
+             releasing the log every 500 commands; one seeded script of
+             2,000 commands each, pipelined; every reply and every
+             member's state equal to the same script run by the port on
+             the CPU; stop, recover from disk on the card, every state
+             equal again and on the card; the host ms of one
+             JitMachine.apply on the card and on the CPU
+  classic_path
+             bench_classic.py's phase A on the port: one cluster of three
+             members co-hosted on one RaNode over one RaSystem (one shared
+             durable WAL), 5 clients x 500 in flight, 256-byte payloads,
+             bursts of 64, 10 s, the noop counter with a release cursor
+             every 100,000 applies: committed cmds/s, applied latency
+             p50/p99, fsyncs, records per fsync, the encode share, beside
+             the nvidia-smi line and the host CPU; held: every
+             acknowledged command applied once on every member and an
+             equal state after a reopen.  Then JitKvMachine(64) on the
+             card behind the same clients with seeded int32 puts and gets:
+             the final state equal to a plain model of the acknowledged
+             puts in log order on every member and after a reopen
 
 The fold_kernels phase also holds the stream decoder (random, append-only,
 int32-edge and invalid-op windows, a ring of 5 and one of 30,000), and a
@@ -184,7 +208,7 @@ stream and the dedup counter.
 
 then the kernels summary line (launches on every path, each counted from
 0 just before it: main, superstep, durable, fifo, kv, stream, wire, tune,
-reads, mesh_parity and mesh_path;
+reads, mesh_parity, mesh_path, classic_parity and classic_path;
 "launches" is
 the count on the kernel's own path), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -3799,6 +3823,510 @@ def phase_mesh_path(dev, volatile: dict, state_to_numpy) -> dict:
     return launches
 
 
+# -- the classic replicated plane (RaNode / RaSystem / api) --------------------
+
+#: classic_path: bench_classic.py's phase A settings (the reference's
+#: ra_bench parity run): 5 clients x 500 in flight, 256-byte payloads,
+#: credit drawn in bursts of 64, 10 s, a release cursor every 100,000
+CLASSIC_DEGREE, CLASSIC_PIPE, CLASSIC_BURST = 5, 500, 64
+CLASSIC_SECONDS, CLASSIC_DATA_SIZE, CLASSIC_RELEASE = 10.0, 256, 100_000
+
+
+def host_cpu_model() -> str:
+    """The host CPU's model name (``lscpu``, else ``/proc/cpuinfo``), with
+    its architecture."""
+    import platform
+    name = ""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+        name = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                     if ln.startswith("Model name")), "")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if not name:
+        try:
+            with open("/proc/cpuinfo") as f:
+                info = dict(ln.split(":", 1) for ln in f if ":" in ln)
+            info = {k.strip(): v.strip() for k, v in info.items()}
+            name = info.get("model name") or " ".join(
+                f"{k} {info[k]}" for k in ("vendor_id", "cpu family",
+                                           "model", "stepping")
+                if k in info)
+        except OSError:
+            pass
+    return f"{name or 'unknown'} ({platform.machine()})"
+
+
+def snapshotting(cls, every: int, **kw):
+    """A factory of ``cls(**kw)`` that also releases its log every
+    ``every`` indexes, so a snapshot of the card-held state lands on
+    disk (a JitMachine emits no release cursor of its own)."""
+    from ra_tpu_torch.core.types import ReleaseCursor
+
+    class Snapshotting(cls):
+        def apply(self, meta, command, state):
+            new, reply = super().apply(meta, command, state)
+            if meta.index % every == 0:
+                return new, reply, [ReleaseCursor(meta.index, new)]
+            return new, reply
+    return lambda: Snapshotting(**kw)
+
+
+def classic_scripts(n: int, seed: int) -> dict:
+    """One seeded script of ``n`` commands per machine of classic_parity:
+    every op of each vocabulary, misses, out-of-range and refused ones."""
+    rng = np.random.default_rng(seed)
+    regs, kv, fifo = [], [], []
+    for _ in range(n):
+        op, a, b, c = (int(x) for x in rng.integers(0, 9, 4))
+        regs.append([("put", a, b * 7 - 20), ("add", a, b - 4),
+                     ("cas", a, b, c)][op % 3])
+        kv.append([("put", a * 2, b), ("get", a * 2), ("delete", a * 2),
+                   ("cas", a * 2, b, c), ("put", a * 2, None)][op % 5]
+                  if op < 8 else ("get", 99))
+        fifo.append([("enqueue", a * 10 + b), ("enqueue", b),
+                     ("dequeue", "settled"), ("dequeue", "unsettled"),
+                     ("settle", int(rng.integers(0, n // 4))),
+                     ("enqueue", c)][op % 6])
+    return {"registers": regs, "jit_kv": kv, "jit_fifo": fifo}
+
+
+def host_tree(st):
+    if isinstance(st, dict):
+        return {k: host_tree(v) for k, v in sorted(st.items())}
+    return (str(st.dtype), st.device.type, st.cpu().tolist())
+
+
+def pipelined(ra, leader, router, cmds: list, burst: int = 64) -> list:
+    """Every command of ``cmds`` through pipeline_commands in bursts, one
+    burst in flight: the replies in command order."""
+    replies: dict = {}
+    done = threading.Event()
+    lock = threading.Lock()
+
+    def on_notify(batch):
+        with lock:
+            for corr, reply in batch:
+                replies[corr] = reply
+            if len(replies) >= want[0]:
+                done.set()
+    want = [0]
+    for lo in range(0, len(cmds), burst):
+        chunk = cmds[lo:lo + burst]
+        with lock:
+            want[0] = lo + len(chunk)
+            done.clear()
+            if len(replies) >= want[0]:
+                done.set()
+        ra.pipeline_commands(leader, [(c, lo + i) for i, c in
+                                      enumerate(chunk)],
+                             notify_to=on_notify, router=router)
+        if not done.wait(60):
+            raise AssertionError(f"burst at {lo}: {len(replies)} replies")
+    return [replies[i] for i in range(len(cmds))]
+
+
+def co_hosted(data_dir: str, device, factory, name: str,
+              election_timeout_ms: int = 5000, **cfg):
+    """One RaNode over one RaSystem hosting a cluster of three members:
+    (system, node, router, server ids, leader)."""
+    import ra_tpu_torch as ra
+    from ra_tpu_torch.core.types import ServerId
+    router = ra.LocalRouter()
+    system = ra.RaSystem(data_dir)
+    node = ra.RaNode("cn", router=router, system=system, device=device)
+    sids = [ServerId(f"{name}{i}", "cn") for i in (1, 2, 3)]
+    ra.start_cluster(name, factory, sids, router=router,
+                     election_timeout_ms=election_timeout_ms, **cfg)
+    ra.trigger_election(sids[0], router)
+    return system, node, router, sids, await_classic_leader(node, sids)
+
+
+def await_classic_leader(node, sids, timeout: float = 30.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for sid in sids:
+            shell = node.shells.get(sid.name)
+            if shell and shell.server.raft_state.value == "leader":
+                return sid
+        time.sleep(0.01)
+    raise AssertionError("no classic leader elected")
+
+
+def settle_members(node, sids, timeout: float = 60.0) -> int:
+    """Wait until every member applied the leader's commit index."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        srvs = [node.shells[s.name].server for s in sids]
+        commit = max(s.commit_index for s in srvs)
+        if all(s.last_applied == commit for s in srvs):
+            return commit
+        time.sleep(0.01)
+    raise AssertionError("classic members did not converge")
+
+
+def classic_run_parity(name: str, factory, cmds: list, device,
+                       data_dir: str, reopen: bool) -> dict:
+    """The script on a co-hosted cluster; with ``reopen`` the node and
+    system are closed after it and the members recovered from disk."""
+    import ra_tpu_torch as ra
+    system, node, router, sids, leader = co_hosted(
+        data_dir, device, factory, f"p{name}")
+    try:
+        t0 = time.perf_counter()
+        replies = pipelined(ra, leader, router, cmds)
+        secs = time.perf_counter() - t0
+        commit = settle_members(node, sids)
+        srvs = [node.shells[s.name].server for s in sids]
+        states = [host_tree(s.machine_state) for s in srvs]
+        snaps = [s.log.snapshot_index_term().index for s in srvs]
+    finally:
+        node.stop()
+        system.close()
+    out = {"replies": replies, "states": states, "seconds": secs,
+           "commit": commit, "snapshot_index": snaps}
+    if reopen:
+        system = ra.RaSystem(data_dir)
+        node = ra.RaNode("cn", router=ra.LocalRouter(), system=system,
+                         device=device)
+        try:
+            got = system.recover_servers(node, lambda c, s: factory())
+            assert sorted(s.name for s in got) == \
+                sorted(s.name for s in sids), got
+            ra.trigger_election(sids[0], node.router)
+            await_classic_leader(node, sids)
+            settle_members(node, sids)
+            out["recovered"] = [
+                host_tree(node.shells[s.name].server.machine_state)
+                for s in sids]
+        finally:
+            node.stop()
+            system.close()
+    return out
+
+
+def host_apply_ms(factory, cmd, device, reps: int = 300) -> float:
+    """Host clock per JitMachine.apply on ``device`` (the classic path's
+    per-command cost: a few small launches and the reply's sync)."""
+    from ra_tpu_torch.core.machine import ApplyMeta
+    m = factory()
+    st = m.init({"device": device})
+    for i in range(20):
+        st, _ = m.apply(ApplyMeta(i + 1, 1), cmd, st)
+    t0 = time.perf_counter()
+    for i in range(reps):
+        st, _ = m.apply(ApplyMeta(i + 21, 1), cmd, st)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_classic_parity(dev) -> dict:
+    """RegisterMachine, JitKvMachine and JitFifoMachine(capacity=16) on
+    the classic plane: three members co-hosted on one RaNode over one
+    RaSystem (on build/'s disk), the machines' state on the card, one
+    seeded script of 2,000 commands each; every reply and member state
+    equal to the same script run by the port on the CPU; a snapshot
+    (release cursor every 500), then stop, recover on the card and every
+    state equal again, on the card."""
+    from ra_tpu_torch.models import JitFifoMachine, JitKvMachine, \
+        RegisterMachine
+    mods = kernel_modules()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    t0 = time.perf_counter()
+    n = 2000
+    scripts = classic_scripts(n, seed=10)
+    machines = {
+        "registers": (RegisterMachine, dict(n_slots=8), ("add", 3, 1)),
+        "jit_kv": (JitKvMachine, dict(n_keys=16), ("put", 3, 7)),
+        "jit_fifo": (JitFifoMachine, dict(capacity=16), ("enqueue", 5)),
+    }
+    rows = []
+    for name, (cls, kw, probe_cmd) in machines.items():
+        factory = snapshotting(cls, 500, **kw)
+        card = classic_run_parity(name, factory, scripts[name], dev,
+                                  str(WAL_ROOT / "classic" / f"{name}_card"),
+                                  reopen=True)
+        cpu = classic_run_parity(name, factory, scripts[name], "cpu",
+                                 str(WAL_ROOT / "classic" / f"{name}_cpu"),
+                                 reopen=False)
+        if card["replies"] != cpu["replies"]:
+            bad = next(i for i, (a, b) in enumerate(
+                zip(card["replies"], cpu["replies"])) if a != b)
+            raise AssertionError(f"classic_parity {name}: reply {bad} "
+                                 f"{card['replies'][bad]} != "
+                                 f"{cpu['replies'][bad]}")
+        strip = [jsonable_state(s) for s in card["states"]]
+        if strip != [jsonable_state(s) for s in cpu["states"]] or \
+                len({json.dumps(s) for s in strip}) != 1:
+            raise AssertionError(f"classic_parity {name}: member states "
+                                 "differ from the CPU run")
+        if card["recovered"] != card["states"]:
+            raise AssertionError(f"classic_parity {name}: recovered states "
+                                 "differ from those before the stop")
+        devices = {leaf[1] for st in card["recovered"]
+                   for leaf in (st.values() if isinstance(st, dict)
+                                else [st])}
+        if devices != {torch.device(dev).type} or \
+                min(card["snapshot_index"]) <= 0:
+            raise AssertionError(f"classic_parity {name}: recovered on "
+                                 f"{devices}, snapshots {card['snapshot_index']}")
+        rows.append({
+            "machine": name, "commands": n, "commit": card["commit"],
+            "snapshot_index": card["snapshot_index"],
+            "card_s": card["seconds"], "cpu_s": cpu["seconds"],
+            "card_cmds_per_s": n / card["seconds"],
+            "cpu_cmds_per_s": n / cpu["seconds"],
+            "apply_ms_card": host_apply_ms(lambda: cls(**kw), probe_cmd,
+                                           dev),
+            "apply_ms_cpu": host_apply_ms(lambda: cls(**kw), probe_cmd,
+                                          "cpu"),
+        })
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    emit({"phase": "classic_parity", "seconds": time.perf_counter() - t0,
+          "rows": rows, "host_launches": launches})
+    return launches
+
+
+def jsonable_state(st):
+    """A host_tree without the device names (card and CPU compared)."""
+    if isinstance(st, dict):
+        return {k: jsonable_state(v) for k, v in st.items()}
+    return [st[0], st[2]]
+
+
+def noop_bench_machine():
+    """bench_classic.py's machine on the port: a count of applies, a
+    release cursor every 100,000, and the batched fold."""
+    from ra_tpu_torch.core.machine import Machine
+    from ra_tpu_torch.core.types import ReleaseCursor
+
+    class NoopBench(Machine):
+        def init(self, config):
+            return 0
+
+        def apply(self, meta, command, state):
+            new = state + 1
+            if meta.index % CLASSIC_RELEASE == 0:
+                return new, new, [ReleaseCursor(meta.index, new)]
+            return new, new
+
+        def apply_batch(self, meta, commands, state):
+            n = len(commands)
+            new = state + n
+            replies = list(range(state + 1, new + 1))
+            base = meta.index
+            k = ((base + n - 1) // CLASSIC_RELEASE) * CLASSIC_RELEASE
+            if k >= base:
+                return new, replies, [ReleaseCursor(k, state + k - base + 1)]
+            return new, replies
+
+    return NoopBench()
+
+
+class ClassicClient:
+    """bench_classic.py's pipelining client: up to ``pipe`` commands in
+    flight, credit drawn in bursts, enqueue -> applied latency sampled
+    1 in 16; every acknowledged correlation kept (the once-only check)."""
+
+    def __init__(self, cid: int, pipe: int, make_cmd):
+        self.cid, self.pipe, self.credit = cid, pipe, pipe
+        self.make_cmd = make_cmd
+        self.acked: list = []
+        self.lats: list = []
+        self.inflight: dict = {}
+        self.sent = 0
+        self._lock = threading.Lock()
+        self._have = threading.Event()
+
+    def on_notify(self, batch) -> None:
+        now = time.perf_counter()
+        with self._lock:
+            for corr, _reply in batch:
+                self.acked.append(corr)
+                t0 = self.inflight.pop(corr, None)
+                if t0 is not None:
+                    self.lats.append(now - t0)
+            self.credit += len(batch)
+        self._have.set()
+
+    def run(self, send, stop_evt) -> None:
+        seq = 0
+        while not stop_evt.is_set():
+            with self._lock:
+                take = min(self.credit, CLASSIC_BURST)
+                self.credit -= take
+            if take <= 0:
+                self._have.clear()
+                self._have.wait(0.02)
+                continue
+            items = []
+            t0 = time.perf_counter()
+            with self._lock:
+                for _ in range(take):
+                    corr = (self.cid, seq)
+                    if not seq & 15:
+                        self.inflight[corr] = t0
+                    items.append((self.make_cmd(self.cid, seq), corr))
+                    seq += 1
+            self.sent += take
+            send(items, self.on_notify)
+
+    def idle(self) -> bool:
+        with self._lock:
+            return self.credit == self.pipe
+
+
+def classic_drive(data_dir: str, dev, factory, make_cmd, name: str,
+                  want_log: bool) -> tuple:
+    """One bench_classic phase A run on the port: the clients for
+    CLASSIC_SECONDS, every acknowledgement awaited, the members settled;
+    then close, reopen and recover: (row, member states, recovered
+    states, the committed log when ``want_log``)."""
+    import ra_tpu_torch as ra
+    system, node, router, sids, leader = co_hosted(
+        data_dir, dev, factory, name, election_timeout_ms=500,
+        tick_interval_ms=100)
+    try:
+        warm = 0
+        for _ in range(3):
+            ra.process_command(leader, make_cmd(99, warm), router=router)
+            warm += 1
+        clients = [ClassicClient(i, CLASSIC_PIPE, make_cmd)
+                   for i in range(CLASSIC_DEGREE)]
+
+        def send(items, cb):
+            ra.pipeline_commands(leader, items, notify_to=cb, router=router,
+                                 trace_ctx=False)
+        stop = threading.Event()
+        threads = [threading.Thread(target=c.run, args=(send, stop),
+                                    daemon=True) for c in clients]
+        wal0 = system.wal.stats()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(CLASSIC_SECONDS)
+        stop.set()
+        for t in threads:
+            t.join(timeout=10)
+        acked_in_window = sum(len(c.acked) for c in clients)
+        elapsed = time.perf_counter() - t0
+        deadline = time.monotonic() + 60
+        while not all(c.idle() for c in clients):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{name}: acknowledgements missing: "
+                                     f"{[c.pipe - c.credit for c in clients]}")
+            time.sleep(0.01)
+        commit = settle_members(node, sids)
+        wal1 = system.wal.stats()
+        srvs = [node.shells[s.name].server for s in sids]
+        acked = [corr for c in clients for corr in c.acked]
+        sent = sum(c.sent for c in clients)
+        if len(acked) != sent or len(set(acked)) != len(acked):
+            raise AssertionError(f"{name}: {sent} sent, {len(acked)} acked, "
+                                 f"{len(set(acked))} distinct")
+        lats = sorted(x for c in clients for x in c.lats)
+        k = len(lats)
+        stats = node.classic_stats()
+        row = {
+            "committed_cmds_per_s": acked_in_window / elapsed,
+            "acked": len(acked), "elapsed_s": elapsed, "commit_index": commit,
+            "p50_applied_latency_ms": 1e3 * lats[k // 2] if k else -1.0,
+            "p99_applied_latency_ms":
+                1e3 * lats[min(k - 1, int(k * 0.99))] if k else -1.0,
+            "latency_samples": k,
+            "fsyncs": wal1["syncs"] - wal0["syncs"],
+            "records_per_fsync": (wal1["writes"] - wal0["writes"]) /
+            max(1, wal1["syncs"] - wal0["syncs"]),
+            "fsync_p50_ms": wal1["fsync_p50_ms"],
+            "encode_share_pct": stats.get("encode_share_pct", -1.0),
+            "classic_stats": stats, "warm_commands": warm,
+            "leader_changed": await_classic_leader(node, sids) != leader,
+        }
+        states = [s.machine_state for s in srvs]
+        log = srvs[0].log
+        committed = [log.fetch(i) for i in range(
+            max(1, log.first_index()), commit + 1)] if want_log else []
+    finally:
+        node.stop()
+        system.close()
+    system = ra.RaSystem(data_dir)
+    node = ra.RaNode("cn", router=ra.LocalRouter(), system=system,
+                     device=dev)
+    try:
+        system.recover_servers(node, lambda c, s: factory())
+        ra.trigger_election(sids[0], node.router)
+        await_classic_leader(node, sids)
+        settle_members(node, sids)
+        recovered = [node.shells[s.name].server.machine_state for s in sids]
+    finally:
+        node.stop()
+        system.close()
+    return row, states, recovered, committed
+
+
+def phase_classic_path(dev, card: str) -> dict:
+    """The classic plane at bench_classic.py's phase A settings: one
+    cluster of three members co-hosted on one RaNode over one RaSystem
+    (one shared durable WAL on build/'s disk), 5 clients x 500 in flight,
+    256-byte payloads, bursts of 64, 10 s, the noop counter with a
+    release cursor every 100,000 applies; committed cmds/s, applied
+    latency p50/p99, fsyncs, records per fsync and the encode share; held:
+    every acknowledged command applied once on every member, an equal
+    state after a reopen.  Then the same clients with JitKvMachine(64) on
+    the card and seeded int32 puts and gets: the final KV state equal to a
+    plain model of the acknowledged puts in log order, on every member
+    and after a reopen."""
+    from ra_tpu_torch.models import JitKvMachine
+    mods = kernel_modules()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    t0 = time.perf_counter()
+    payload = bytes(CLASSIC_DATA_SIZE)
+    row, states, recovered, _log = classic_drive(
+        str(WAL_ROOT / "classic" / "noop"), dev, noop_bench_machine,
+        lambda cid, seq: payload, "noop", want_log=False)
+    want = row["acked"] + row["warm_commands"]
+    if states != [want] * 3 or recovered != states:
+        raise AssertionError(f"classic_path noop: states {states}, "
+                             f"recovered {recovered}, acked+warm {want}")
+    emit({"phase": "classic_path_noop", "nvidia_smi": card,
+          "host_cpu": host_cpu_model(), "cores": os.cpu_count(), **row})
+
+    keys = 64
+    rngs = {}
+
+    def kv_cmd(cid, seq):
+        rng = rngs.setdefault(cid, np.random.default_rng(1000 + cid))
+        k, v, op = (int(x) for x in rng.integers(0, [keys, 2 ** 31 - 1, 4]))
+        return ("put", k, v) if op else ("get", k)
+    kv_row, kv_states, kv_recovered, committed = classic_drive(
+        str(WAL_ROOT / "classic" / "jit_kv"), dev,
+        lambda: JitKvMachine(n_keys=keys), kv_cmd, "kv", want_log=True)
+    model = [-1] * keys
+    for e in committed:
+        data = getattr(e.command, "data", None)
+        if isinstance(data, tuple) and data[0] == "put":
+            model[data[1]] = data[2]
+    got = [s.cpu().tolist() for s in kv_states]
+    back = [s.cpu().tolist() for s in kv_recovered]
+    if got != [model] * 3 or back != got or \
+            {s.device.type for s in kv_recovered} != {torch.device(dev).type}:
+        raise AssertionError("classic_path jit_kv: member states differ "
+                             "from the plain model of the acked puts")
+    kv_row.pop("classic_stats")
+    emit({"phase": "classic_path_jit_kv", "nvidia_smi": card,
+          "host_cpu": host_cpu_model(), "keys": keys,
+          "committed_log_entries": len(committed), **kv_row})
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    if any(launches.values()):
+        emit({"phase": "classic_path_note",
+              "launches_not_zero": launches})
+    emit({"phase": "classic_path", "seconds": time.perf_counter() - t0,
+          "host_launches": launches})
+    return launches
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of ra_tpu_torch "
@@ -3875,6 +4403,8 @@ def main() -> int:
         mesh_parity_launches = phase_mesh_parity(LockstepEngine,
                                                  state_to_numpy, dev)
         mesh_launches = phase_mesh_path(dev, volatile, state_to_numpy)
+        classic_parity_launches = phase_classic_parity(dev)
+        classic_path_launches = phase_classic_path(dev, card)
     finally:
         shutil.rmtree(WAL_ROOT, ignore_errors=True)
     # launches of each kernel on each path, each counted from 0 just
@@ -3899,6 +4429,8 @@ def main() -> int:
         k["launches_reads_path"] = reads_launches[name]
         k["launches_mesh_parity"] = mesh_parity_launches[name]
         k["launches_mesh_path"] = mesh_launches[name]
+        k["launches_classic_parity"] = classic_parity_launches[name]
+        k["launches_classic_path"] = classic_path_launches[name]
         if name in folds:
             k["launches"] = folds[name]["host"][name]
             k["executions_profiled"] = folds[name]["profiled_executions"]

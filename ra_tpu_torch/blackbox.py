@@ -2,9 +2,10 @@
 
 The port's own copy of ``ra_tpu/blackbox.py`` (the port imports nothing
 of ``ra_tpu``), with the registry cut to the planes the port has: the
-WAL shards, the durable engine's bridge, the storage fault plan, the
-supervisors, the ingress and wire planes, the autotuner and the device
-plane (whose four events keep the reference's texts).
+classic plane's command lifecycle and reliable RPC, the WAL shards, the
+durable engine's bridge, the storage fault plan, the supervisors, the
+ingress and wire planes, the autotuner and the device plane (whose four
+events keep the reference's texts).
 
 * :class:`FlightRecorder` -- an always-on, bounded, per-subsystem ring
   of structured events.  Every plane emits typed events through
@@ -42,6 +43,29 @@ logger = logging.getLogger("ra_tpu_torch.blackbox")
 #: one-line meaning.  Span names recorded through ``trace`` are events
 #: too: a Chrome trace and a post-mortem bundle speak one vocabulary.
 EVENT_REGISTRY = {
+    # -- command lifecycle (classic path; `trace` = propagated ctx) ----
+    "cmd.ingress": "client created a trace context at the API boundary",
+    "cmd.submit": "traced command handed to a member (one per attempt; "
+                  "redirects show as extra submits)",
+    "cmd.append": "leader appended the command at (uid, idx, term)",
+    "cmd.commit": "a server's commit index advanced to idx (uid-keyed)",
+    "cmd.apply": "a traced command was applied on a member",
+    # -- classic replication batching ----------------------------------
+    "rpc.batch": "leader built one multi-entry AppendEntries batch "
+                 "(entry count + payload bytes; ONE event per batch, "
+                 "never per entry)",
+    # -- reliable control-plane RPC (transport/rpc.py) -----------------
+    "rpc.send": "reliable-RPC attempt left the sender (rid stable "
+                "across retries)",
+    "rpc.recv": "receiver started executing a request id",
+    "rpc.dup": "receiver dedup hit — duplicate delivery of a seen rid "
+               "under the same trace context",
+    "rpc.expired": "request arrived past its propagated deadline",
+    # -- transport fault plan ------------------------------------------
+    "net.fault": "transport FaultPlan injected a fault (kind, peer, "
+                 "frame class)",
+    "rpc.domain_delay": "latency-domain matrix stretched a frame "
+                        "crossing (src -> dst) domains",
     # -- WAL plane (per shard) -----------------------------------------
     "wal.batch": "span: one group-commit batch (write + sync + notify)",
     "wal.write": "one group-commit batch reached the file (per-uid "
@@ -73,6 +97,7 @@ EVENT_REGISTRY = {
     # -- supervision ---------------------------------------------------
     "sup.restart": "a supervisor restarted a dead component",
     "sup.giveup": "restart intensity exceeded; supervisor backing off",
+    "srv.crash": "a server shell crashed out of the node event loop",
     # -- ingress plane (ingress/) --------------------------------------
     "ingress.connect": "session (re)connected: epoch bump under a "
                        "stable (tenant, lane, shard) placement",

@@ -1,4 +1,7 @@
-"""Engine state carried across: ``LaneState`` <-> ``<field>:<leaf>`` arrays.
+"""State carried across from the reference: the engine's checkpoint
+arrays, and the classic plane's pickles.
+
+**Engine state**: ``LaneState`` <-> ``<field>:<leaf>`` arrays.
 
 The key scheme is the reference engine's checkpoint archive
 (``ra_tpu/engine/lockstep.py`` ``LockstepEngine.save``): one numpy array
@@ -8,9 +11,25 @@ either engine restores into the other, and tests compare the two
 engines' states leaf for leaf.  The older positional archive (``a<i>``
 keys over the whole state's leaves, with or without the telemetry
 leaves) restores through :func:`state_from_positional`.
+
+**Classic-plane pickles**: a data directory of the classic plane holds
+pickles (the log's meta with its ``voted_for`` server ids, the snapshot
+containers' metadata and the machine states in them, the directory's
+records, and the codec's FALLBACK command images such as membership
+changes).  Those written by the reference name ``ra_tpu.core.types...``,
+so unpickling them as they are would import the reference.  Every
+pickle load of the port's classic plane goes through :func:`loads`
+instead, whose :class:`ClassicUnpickler` maps a ``ra_tpu.X`` path onto
+``ra_tpu_torch.X`` and refuses by name any ``ra_tpu`` path the port has
+no counterpart for, and any JAX array (a reference JitMachine's state
+pickled into a snapshot: the port cannot read it without JAX).  So the
+port's ``RaSystem`` recovers a directory the reference wrote.  The
+reverse is not promised: the port's own pickles name ``ra_tpu_torch``.
 """
 from __future__ import annotations
 
+import io
+import pickle
 from typing import Optional
 
 import numpy as np
@@ -111,3 +130,33 @@ def state_from_positional(arrays: dict, like, device: torch.device):
                              f"{got.dtype} != {x.dtype}")
         loaded.append(got.to(device))
     return tree_unflatten(like, loaded)
+
+
+class ClassicUnpickler(pickle.Unpickler):
+    """An unpickler for classic-plane data written by either package: a
+    class under ``ra_tpu`` resolves to its counterpart under
+    ``ra_tpu_torch``; a reference path the port lacks, and any class of
+    ``jax``/``jaxlib``, raises ``pickle.UnpicklingError`` naming it."""
+
+    def find_class(self, module: str, name: str):
+        top = module.split(".", 1)[0]
+        if top == "ra_tpu":
+            ported = "ra_tpu_torch" + module[len("ra_tpu"):]
+            try:
+                return super().find_class(ported, name)
+            except (ImportError, AttributeError) as exc:
+                raise pickle.UnpicklingError(
+                    f"the pickle names {module}.{name} of the reference, "
+                    f"which has no counterpart {ported}.{name} in the "
+                    "port") from exc
+        if top in ("jax", "jaxlib"):
+            raise pickle.UnpicklingError(
+                f"the pickle holds a JAX object ({module}.{name}), such as "
+                "a reference JitMachine's state; the port reads no JAX "
+                "arrays")
+        return super().find_class(module, name)
+
+
+def loads(data: bytes):
+    """``pickle.loads`` through :class:`ClassicUnpickler`."""
+    return ClassicUnpickler(io.BytesIO(data)).load()

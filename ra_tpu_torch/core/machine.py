@@ -1,11 +1,23 @@
-"""The ``JitMachine`` contract on torch tensors.
+"""User state-machine behaviour: the port's own copy of
+``ra_tpu/core/machine.py``.
 
-The counterpart of ``ra_tpu/core/machine.py::JitMachine``: committed
+:class:`Machine` is the classic host-side behaviour (the ra_machine
+callback contract, ra_machine.erl:233-287): ``apply`` runs in Python,
+may return effects, and state may be any Python object.
+:class:`SimpleMachine` wraps a plain ``fun(command, state)``.
+
+:class:`JitMachine` is the device variant on torch tensors: committed
 commands are dense tensors folded on the engine's device.  ``state`` is
 a tree (see ``core.tree``) of fixed-shape tensors with leading lane
 dims; every method is a pure function of its tensor arguments with no
 data-dependent host control flow, so a step never waits on the device.
-The host ``Machine`` bridge of the reference is not part of the port.
+A JitMachine also speaks the host protocol (:meth:`JitMachine.init`,
+:meth:`JitMachine.apply`), so the same machine runs on the classic path
+(``RaServer``/``RaNode``): there each committed command is one
+``jit_apply`` on the machine's device, whose replica state stays there.
+The reference caches one ``jax.jit`` of the host apply per class and
+scalar config (``_HOST_APPLY_JIT_CACHE``); eager torch has nothing to
+compile, so that cache has no counterpart here.
 
 The reference picks a window fold's branch with ``lax.cond``
 (``cond_concrete``); a step here never reads a tensor on the host
@@ -18,11 +30,14 @@ selecting on the tensor.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
 
 import torch
 
-from .tree import tree_map
+from ..device import resolve_device
+from .tree import tree_leaves, tree_map
+from .types import Effects
 
 
 def cond_select(pred, on_true, on_false):
@@ -43,8 +58,111 @@ def encode_i32(values) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.int32)
 
 
-class JitMachine:
-    """Device-side state machine folded by the lane engine."""
+@dataclass(frozen=True, slots=True)
+class ApplyMeta:
+    """Metadata passed to apply/3 (ra_machine:command_meta_data()).
+    Slotted: one instance per applied command on every member — the
+    apply fold is the classic plane's hottest loop."""
+
+    index: int
+    term: int
+    system_time: float = 0.0
+    machine_version: int = 0
+    from_: Any = None
+    reply_mode: Any = None
+
+
+class Machine:
+    """Base class for host-side state machines.
+
+    Subclasses must override :meth:`init` and :meth:`apply`.  All other
+    callbacks have no-op defaults matching the optional-callback semantics of
+    the reference (ra_machine.erl:211-221).
+    """
+
+    #: bump when apply semantics change; see version gating in the core
+    #: (ra_server.erl:2671-2732)
+    version: int = 0
+
+    def init(self, config: dict) -> Any:
+        raise NotImplementedError
+
+    def apply(self, meta: ApplyMeta, command: Any, state: Any):
+        """Apply a committed user command.
+
+        Returns ``(new_state, reply)`` or ``(new_state, reply, effects)``.
+        """
+        raise NotImplementedError
+
+    #: OPTIONAL batched apply: when a machine sets this to a
+    #: callable ``apply_batch(meta, commands, state) -> (state, replies)``
+    #: (or ``(state, replies, effects)``), the core's apply fold hands it
+    #: RUNS of contiguous same-term plain user commands in one call
+    #: instead of one :meth:`apply` per entry.  ``meta`` describes the
+    #: FIRST entry of the run; command ``i`` applied at ``meta.index + i``
+    #: (machines that key on the index compute it that way).  ``replies``
+    #: must be one reply per command, in order — they feed the same
+    #: notify/await-consensus plumbing the per-entry path feeds.  The
+    #: contract is exact order equivalence with folding :meth:`apply`
+    #: over the run; machines whose apply has per-command effects should
+    #: leave this None (the default) and take the per-entry path.
+    apply_batch = None
+
+    # -- optional callbacks -------------------------------------------------
+
+    def state_enter(self, raft_state: str, state: Any) -> Effects:
+        return []
+
+    def tick(self, time_ms: float, state: Any) -> Effects:
+        return []
+
+    def snapshot_installed(self, meta, state, old_meta, old_state) -> Effects:
+        return []
+
+    def init_aux(self, name: str) -> Any:
+        return None
+
+    def handle_aux(self, raft_state: str, msg_type: str, msg: Any,
+                   aux_state: Any, internal) -> tuple:
+        """Returns (aux_state, effects)."""
+        return aux_state, []
+
+    def overview(self, state: Any) -> Any:
+        return state
+
+    def which_module(self, version: int) -> "Machine":
+        """Machine-version dispatch (ra_machine.erl:346-362).  Return the
+        machine implementing ``version``; default: self for all versions."""
+        return self
+
+    def snapshot_module(self):
+        """Override to customise the snapshot format (ra_machine.erl:435)."""
+        return None
+
+    def live_indexes(self, state: Any) -> list:
+        return []
+
+
+class SimpleMachine(Machine):
+    """Wraps a plain ``fun(command, state) -> state`` as a machine — the
+    ``{simple, Fun, Init}`` config variant (ra_machine_simple.erl, selected in
+    ra_server.erl:277-283).  Replies are the new state."""
+
+    def __init__(self, fn: Callable[[Any, Any], Any], initial_state: Any):
+        self._fn = fn
+        self._initial = initial_state
+
+    def init(self, config: dict) -> Any:
+        return self._initial
+
+    def apply(self, meta: ApplyMeta, command: Any, state: Any):
+        new_state = self._fn(command, state)
+        return new_state, new_state
+
+
+class JitMachine(Machine):
+    """Device-side state machine folded by the lane engine, and on the
+    classic path one committed command at a time."""
 
     #: (dtype name, shape) of one encoded command, e.g. ("int32", (2,))
     command_spec: tuple = ("int32", ())
@@ -126,6 +244,36 @@ class JitMachine:
 
     def decode_reply(self, reply_array) -> Any:
         return reply_array
+
+    # -- host-side protocol so JitMachines also run on the classic path ----
+
+    def init(self, config: dict) -> Any:
+        """Lane 0 of ``jit_init(1, device)``, kept on the device named by
+        ``config["device"]`` (None or absent: the card; the CPU by name
+        only)."""
+        dev = resolve_device((config or {}).get("device"))
+        self.check_device(dev)
+        return tree_map(lambda x: x[0], self.jit_init(1, dev))
+
+    def apply(self, meta: ApplyMeta, command: Any, state: Any):
+        """One committed command through :meth:`jit_apply` on the device
+        the state lives on (a state recovered from a snapshot stays where
+        it was pickled from).  The meta scalars and the encoded command
+        go there in one copy, from pinned memory on a card, so the copy
+        waits for nothing; the only host sync is the reply's own read in
+        :meth:`decode_reply`."""
+        enc = self.encode_command(command)
+        dev = tree_leaves(state)[0].device
+        row = torch.cat([torch.tensor([meta.index, meta.term],
+                                      dtype=torch.int32),
+                         enc.reshape(-1).to(torch.int32)])
+        if dev.type != "cpu":
+            row = row.pin_memory().to(dev, non_blocking=True)
+        meta_t = {"index": row[0], "term": row[1]}
+        new_state, reply = self.jit_apply(meta_t,
+                                          row[2:].reshape(enc.shape),
+                                          state)
+        return new_state, self.decode_reply(reply)
 
     def encode_query(self, query: Any):
         raise NotImplementedError

@@ -529,6 +529,7 @@ class EngineDurability:
     the merged confirm feedback arrays."""
 
     def __init__(self, data_dir: str, n_lanes: int, *, sync_mode: int = 1,
+                 write_strategy: str = "default",
                  max_pending: int = 8, wal_shards: int = 1,
                  wal_batch_bytes: int = WAL_BATCH_BYTES,
                  wal_batch_interval_ms: Optional[float] = None,
@@ -559,6 +560,7 @@ class EngineDurability:
         #: confirm horizon covers the step (the commit_e2e phase)
         self._submit_ts: dict = {}
         wal_kwargs = dict(sync_mode=sync_mode,
+                          write_strategy=write_strategy,
                           max_batch_bytes=wal_batch_bytes,
                           max_batch_interval_ms=wal_batch_interval_ms,
                           phase_stats=self.phases,
@@ -615,6 +617,7 @@ class EngineDurability:
         self._bb_config = {
             "data_dir": data_dir, "n_lanes": n_lanes,
             "wal_shards": wal_shards, "sync_mode": sync_mode,
+            "write_strategy": write_strategy,
             "max_pending": max_pending,
             "wal_batch_bytes": wal_batch_bytes,
             "wal_batch_interval_ms": wal_batch_interval_ms,
@@ -1137,8 +1140,8 @@ def _final_logs(blocks: list, ckpt_tail: np.ndarray):
 
 
 def open_engine(machine, data_dir: str, n_lanes: int, n_members: int = 3,
-                *, sync_mode: int = 1, max_pending: int = 8,
-                wal_shards: int = 1,
+                *, sync_mode: int = 1, write_strategy: str = "default",
+                max_pending: int = 8, wal_shards: int = 1,
                 wal_batch_bytes: int = WAL_BATCH_BYTES,
                 wal_batch_interval_ms: Optional[float] = None,
                 wal_supervise: bool = True, **engine_kwargs):
@@ -1151,7 +1154,8 @@ def open_engine(machine, data_dir: str, n_lanes: int, n_members: int = 3,
     and resume in durable mode: recovery = checkpoint + WAL re-read,
     deduped by the overwrite rule, applied with effects suppressed.
     ``wal_batch_bytes`` and ``wal_batch_interval_ms`` (None: 0.0, no
-    wait) set every shard's group commit.  ``engine_kwargs`` go to
+    wait) set every shard's group commit, ``write_strategy`` (``default``,
+    ``o_sync`` or ``sync_after_notify``) every shard's durability order.  ``engine_kwargs`` go to
     :class:`LockstepEngine`, ``device`` among them: None is the CUDA
     card, ``"cpu"`` the CPU by name only."""
 
@@ -1170,6 +1174,7 @@ def open_engine(machine, data_dir: str, n_lanes: int, n_members: int = 3,
     # tables are the step-block source for replay.  No engine writes
     # happen until attach, so constructing it up front is safe.
     dur = EngineDurability(data_dir, n_lanes, sync_mode=sync_mode,
+                           write_strategy=write_strategy,
                            max_pending=max_pending, wal_shards=wal_shards,
                            wal_batch_bytes=wal_batch_bytes,
                            wal_batch_interval_ms=wal_batch_interval_ms,

@@ -262,8 +262,9 @@ class FaultyIO:
 
     # -- opens (register the fd's fault stream) -----------------------------
 
-    def wal_open(self, path: str, truncate: bool = False) -> int:
-        fd = self._base.wal_open(path, truncate=truncate)
+    def wal_open(self, path: str, truncate: bool = False,
+                 o_sync: bool = False) -> int:
+        fd = self._base.wal_open(path, truncate=truncate, o_sync=o_sync)
         with self._lock:
             self._fd_info[fd] = (classify_path(path), path)
             self._failed_sync_fds.discard(fd)

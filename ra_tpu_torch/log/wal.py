@@ -226,6 +226,10 @@ def scan_wal_file(path: str, tables: dict) -> None:
             _fault_note("crc_catches")
             records, err = retry, retry_err
     wid_to_uid: dict[int, str] = {}
+    #: uid -> the highest index in its table, so the overwrite test is
+    #: one comparison a record (a scan of the table a record made
+    #: recovery quadratic in the entries a file holds)
+    tops: dict = {}
     for rec in records:
         if rec[0] == "reg":
             wid_to_uid[rec[1]] = rec[2]
@@ -235,12 +239,14 @@ def scan_wal_file(path: str, tables: dict) -> None:
         if uid is None:
             continue
         tbl = tables.setdefault(uid, {})
-        if idx in tbl or any(k > idx for k in tbl):
+        top = tops[uid] if uid in tops else max(tbl, default=None)
+        if top is not None and top >= idx:
             # overwrite invalidates higher indexes (dedup,
             # ra_log_wal recovery semantics :871-955)
             for k in [k for k in tbl if k > idx]:
                 del tbl[k]
         tbl[idx] = (term, payload)
+        tops[uid] = idx
     if err is not None:
         raise err
 
@@ -259,17 +265,30 @@ class Wal:
     """Node-wide fan-in WAL with a background batch thread."""
 
     def __init__(self, data_dir: str, *, sync_mode: int = 1,
+                 write_strategy: str = "default",
+                 max_size: int = DEFAULT_MAX_SIZE,
+                 max_batch: int = DEFAULT_MAX_BATCH,
+                 max_entries: int = 0,
                  max_batch_bytes: int = 0,
                  max_batch_interval_ms: float = 0.0,
                  segment_writer=None,
                  blackbox_dir: Optional[str] = None,
                  phase_stats=None) -> None:
-        """The reference's default write strategy (ra_log_wal.erl:66-96):
-        one write(2) for the batch, then the ``sync_mode`` syscall, then
-        notify — durability before confirmation.
+        """write_strategy (ra_log_wal.erl:66-96):
+
+        * ``default`` — one write(2) for the batch, then the sync_mode
+          syscall, then notify (durability before confirmation)
+        * ``o_sync`` — the file is opened O_SYNC so the write itself is
+          durable; no separate sync syscall (trades batch-write speed
+          for no sync latency)
+        * ``sync_after_notify`` — write, notify, THEN sync: lowest
+          confirm latency, with the documented weaker window (a crash
+          between notify and sync can lose confirmed-but-unsynced
+          entries of that batch — same contract as the reference)
 
         Group-commit policy: a batch closes when the mailbox drains, when
-        it holds ``DEFAULT_MAX_BATCH`` records, when its payload bytes
+        it holds ``max_batch`` records (or, with ``max_entries``, the
+        rest of the file's record budget), when its payload bytes
         reach ``max_batch_bytes`` (0: no byte cap), or when
         ``max_batch_interval_ms`` has elapsed since the group opened —
         whichever comes first.  With the interval at 0 (default) the
@@ -279,9 +298,12 @@ class Wal:
         explicit wait budget).  The interval is read once per group, so a
         live change lands at the next group.  A flush barrier or rollover
         marker closes the group immediately — flush latency never pays
-        the wait budget.  A file rolls over at ``DEFAULT_MAX_SIZE``
-        bytes.
+        the wait budget.  A file rolls over at ``max_size`` bytes, or at
+        ``max_entries`` records when that is nonzero.
         """
+        if write_strategy not in ("default", "o_sync",
+                                  "sync_after_notify"):
+            raise ValueError(f"unknown write_strategy {write_strategy!r}")
         self.dir = os.path.join(data_dir, "wal")
         os.makedirs(self.dir, exist_ok=True)
         #: where post-mortem bundles land (<dir>/blackbox): a sharded
@@ -289,6 +311,8 @@ class Wal:
         #: bundles sit together, not one per shard subdir
         self._bb_dir = blackbox_dir or data_dir
         self.sync_mode = sync_mode
+        self.write_strategy = write_strategy
+        self.max_size = max_size
         #: optional telemetry.PhaseStats — the engine durability bridge
         #: passes its accumulator so the WAL's fsync_wait and
         #: confirm_publish edges join the phase attribution;
@@ -297,6 +321,11 @@ class Wal:
         self.max_batch_bytes = max_batch_bytes
         #: group-commit wait budget (ms); the autotuner retargets it live
         self.max_batch_interval_ms = max_batch_interval_ms
+        #: optional per-file record cap (wal_max_entries; the reference
+        #: rolls on either limit, ra_log_wal.erl:593-620) — 0 disables
+        self.max_entries = max_entries
+        self._file_entries = 0
+        self.max_batch = max_batch
         #: bounded reservoir of recent durability-syscall latencies (s)
         self._sync_lats: collections.deque = collections.deque(maxlen=512)
         self.segment_writer = segment_writer
@@ -450,9 +479,18 @@ class Wal:
                 self._crash_dump()
                 raise RuntimeError("wal killed")
             batch = [first]
-            # group-commit collection: greedy drain up to
-            # DEFAULT_MAX_BATCH records (a __many__ fan-in item counts
-            # its whole run and is never split), optionally holding the
+            # cap the batch at the remaining per-file entry budget so a
+            # file never exceeds max_entries (the reference evaluates
+            # its roll condition per write, ra_log_wal.erl:426-441 —
+            # batch-granularity enforcement alone could overshoot by a
+            # whole max_batch under bursty load)
+            cap = self.max_batch
+            if self.max_entries:
+                cap = min(cap, max(1, self.max_entries -
+                                   self._file_entries))
+            # group-commit collection: greedy drain up to ``cap``
+            # records (a __many__ fan-in item counts its whole run and
+            # is never split), optionally holding the
             # group open up to max_batch_interval_ms / until
             # max_batch_bytes, so one fdatasync covers the whole burst.
             # Flush/roll markers close the group immediately.
@@ -462,7 +500,7 @@ class Wal:
             interval_ms = self.max_batch_interval_ms  # once per group
             deadline = time.monotonic() + interval_ms / 1000.0 \
                 if interval_ms > 0 else None
-            while group_count < DEFAULT_MAX_BATCH and not urgent:
+            while group_count < cap and not urgent:
                 if self.max_batch_bytes and \
                         group_bytes >= self.max_batch_bytes:
                     break
@@ -660,6 +698,7 @@ class Wal:
                 c[0] = min(c[0], index)
                 c[1] = max(c[1], index)
                 c[2] = term
+        deferred_sync = False
         if buf:
             # IO first, bookkeeping after: if the write throws, last_idx
             # and _file_ranges still describe only bytes the file really
@@ -668,9 +707,16 @@ class Wal:
             # overstating the ranges would silently drop acknowledged
             # entries
             try:
-                n = IO.write_batch(self._fd, bytes(buf), 0)
-                if self.sync_mode:
-                    self._timed_sync()
+                if self.write_strategy == "o_sync":
+                    # O_SYNC fd: the write IS the durability point
+                    n = IO.write_batch(self._fd, bytes(buf), 0)
+                elif self.write_strategy == "sync_after_notify":
+                    n = IO.write_batch(self._fd, bytes(buf), 0)
+                    deferred_sync = self.sync_mode != 0
+                else:
+                    n = IO.write_batch(self._fd, bytes(buf), 0)
+                    if self.sync_mode:
+                        self._timed_sync()
             except OSError as exc:
                 # nothing was confirmed: bookkeeping and notify are
                 # skipped, the batch's entries stay memtable-resident,
@@ -680,6 +726,7 @@ class Wal:
                 return
             self._poison_streak = 0
             self._file_size += n
+            self._file_entries += n_entries
             self.counters["batches"] += 1
             self.counters["writes"] += n_entries
             self.counters["bytes_written"] += n
@@ -715,14 +762,31 @@ class Wal:
             # waits behind)
             self._phases.note("confirm_publish",
                               time.monotonic() - t_pub)
-        if roll or self._file_size >= DEFAULT_MAX_SIZE:
+        if deferred_sync:
+            # sync_after_notify: durability syscall AFTER the confirms
+            # (complete_batch with post-notify sync, ra_log_wal.erl:66-96)
+            try:
+                self._timed_sync()
+            except OSError as exc:
+                # the documented weaker window of this strategy: the
+                # batch was already confirmed but may not be durable.
+                # Poison + rollover; passing the batch's confirm window
+                # makes the resend reach BELOW last_idx and re-write the
+                # confirmed-but-unsynced suffix into the fresh file,
+                # closing the window going forward.
+                self._on_batch_io_error(exc, flushes, confirmed=confirms)
+                return
+        if roll or self._file_size >= self.max_size or \
+                (self.max_entries and
+                 self._file_entries >= self.max_entries):
             self._rollover()
         # flush barriers release only after any requested rollover has been
         # handed to the segment writer (callers chain await_idle after)
         for done in flushes:
             done.set()
 
-    def _on_batch_io_error(self, exc: OSError, flushes: list) -> None:
+    def _on_batch_io_error(self, exc: OSError, flushes: list,
+                           confirmed: Optional[dict] = None) -> None:
         """Degradation policy for a failed batch write or durability
         syscall — the fsyncgate discipline made supervision-shaped:
 
@@ -769,11 +833,23 @@ class Wal:
             # incarnation, e.g. right after a supervised restart) means
             # "resend everything memtable-resident": hi=0 — duplicates
             # are harmless (overwrite dedup + stale-confirm clamping).
-            resends = [(w.notify, w.uid,
-                        w.last_idx if w.last_idx is not None else 0)
-                       for w in self._writers.values()]
-        for notify, uid, last in resends:
-            notify(uid, None, last, -1)
+            # ``confirmed`` (the sync_after_notify failure path) pulls
+            # the resend floor below entries that were confirmed ahead
+            # of the durability syscall that then failed; those resends
+            # carry term=-2 ("unsynced-confirm rewind") so a writer that
+            # floor-clamps its resends to its own confirm watermark
+            # (DurableLog does) knows to pull that watermark back first
+            # instead of trusting the poisoned file for the suffix.
+            resends = []
+            for w in self._writers.values():
+                last = w.last_idx if w.last_idx is not None else 0
+                term = -1
+                if confirmed and w.uid in confirmed:
+                    last = min(last, confirmed[w.uid][0] - 1)
+                    term = -2
+                resends.append((w.notify, w.uid, max(0, last), term))
+        for notify, uid, last, term in resends:
+            notify(uid, None, last, term)
         for done in flushes:
             self._queue.put(("__flush__", 0, 0, b"", done))
 
@@ -810,8 +886,8 @@ class Wal:
                 1000 * lats[min(len(lats) - 1, int(len(lats) * 0.99))], 3)
         else:
             d["fsync_p50_ms"] = d["fsync_p99_ms"] = -1.0
-        # -1 sentinel when no durability syscall ever ran (sync_mode=0)
-        # — matching the fsync percentile sentinels; the raw
+        # -1 sentinel when no durability syscall ever ran (sync_mode=0,
+        # o_sync) — matching the fsync percentile sentinels; the raw
         # write count would read as extreme amortization otherwise
         d["records_per_fsync"] = round(
             d["writes"] / d["syncs"], 2) if d["syncs"] else -1.0
@@ -829,9 +905,11 @@ class Wal:
         self._file_seq += 1
         self._file_path = os.path.join(self.dir,
                                        f"{self._file_seq:08d}.wal")
-        self._fd = IO.wal_open(self._file_path, truncate=True)
+        self._fd = IO.wal_open(self._file_path, truncate=True,
+                               o_sync=self.write_strategy == "o_sync")
         IO.write_batch(self._fd, MAGIC, 0)
         self._file_size = len(MAGIC)
+        self._file_entries = 0
         self._registered_in_file = set()
         self._file_ranges = {}
         # payload interning is file-scope: type-3 slots index the table

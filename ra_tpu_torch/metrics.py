@@ -1,14 +1,120 @@
-"""Counter-field registries the port's engine uses.
+"""Counter-field registries, counters and the leaderboard of the port.
 
-Own copies of ``ra_tpu.metrics.ENGINE_PIPELINE_FIELDS``,
-``TELEMETRY_FIELDS``, ``TELEMETRY_SUMMARY_FIELDS``, ``PHASE_FIELDS``,
-``WAL_FIELDS``, ``ENGINE_WAL_FIELDS``, ``DISK_FAULT_FIELDS``,
-``INGRESS_FIELDS``, ``WIRE_FIELDS``, ``READ_FIELDS`` and
-``DEVICE_FIELDS`` (the port
-imports nothing of ``ra_tpu``); the equality of every tuple with the
-reference is pinned by ``tests/test_torch_engine.py``,
-``tests/test_torch_wal.py`` and ``tests/test_torch_ingress.py``.
+Own copies of every field tuple of ``ra_tpu.metrics`` (the port imports
+nothing of ``ra_tpu``), with the classic plane's ``Counters`` registry
+and ``Leaderboard``; the equality of every tuple with the reference is
+pinned by ``tests/test_torch_engine.py``, ``tests/test_torch_wal.py``,
+``tests/test_torch_ingress.py`` and ``tests/test_torch_classic_core.py``.
+``PLACEMENT_FIELDS`` is registered for the registry's parity only: the
+placement tier is not ported yet.
 """
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+#: per-server LOG subsystem counter fields (RA_LOG_COUNTER_FIELDS,
+#: ra.hrl:236-268 — same names).  Owned by the log facade (DurableLog /
+#: MemoryLog keep a plain dict) and merged into key_metrics.
+#: Deliberate N/A vs the reference: ``reserved_1`` (a placeholder), and
+#: ``read_open_mem_tbl``/``read_closed_mem_tbl`` — the reference's
+#: open/closed WAL ETS tables are merged into the DurableLog memtable
+#: here (wal.py:15-21), so those reads all count as ``read_cache``.
+LOG_FIELDS = (
+    "write_ops", "write_resends", "read_ops", "read_cache",
+    "read_segment", "fetch_term", "snapshots_written",
+    "snapshot_installed", "snapshot_bytes_written", "open_segments",
+    "checkpoints_written", "checkpoint_bytes_written",
+    "checkpoints_promoted",
+)
+
+#: per-server raft/process counter fields (RA_SRV_COUNTER_FIELDS,
+#: ra.hrl:311-357 — same names).  ``reserved_2`` omitted (placeholder);
+#: ``invalid_reply_mode_commands`` stays 0 by construction — reply modes
+#: are a typed enum here, so an invalid one cannot be submitted.
+#: ``msgs_processed`` is ours (no reference equivalent): total events
+#: through the shell, useful for busy-loop diagnostics.
+SERVER_FIELDS = (
+    "aer_received_follower", "aer_replies_success", "aer_replies_fail",
+    "commands", "command_flushes", "aux_commands", "consistent_queries",
+    "rpcs_sent", "msgs_sent", "dropped_sends", "send_msg_effects_sent",
+    "pre_vote_elections", "elections", "forced_gcs", "snapshots_sent",
+    "release_cursors", "aer_received_follower_empty",
+    "term_and_voted_for_updates", "local_queries",
+    "invalid_reply_mode_commands", "checkpoints", "msgs_processed",
+)
+
+#: per-server gauge fields (RA_SRV_METRICS_COUNTER_FIELDS,
+#: ra.hrl:359-383): sampled live from server state at key_metrics time
+#: rather than double-written into counters on every event.
+METRIC_FIELDS = (
+    "last_applied", "commit_index", "snapshot_index", "last_index",
+    "last_written_index", "commit_latency", "term", "checkpoint_index",
+    "effective_machine_version",
+)
+
+#: router-level reliable-RPC counter fields (transport/rpc.py): the
+#: control plane's at-most-once observability.  Sender side: calls,
+#: retries and the typed failure triad; receiver side: executions,
+#: dedup hits (a retry mapped onto an already-seen request id — the
+#: proof no lifecycle verb ran twice), responses re-sent from the
+#: cache, and requests that arrived past their propagated deadline.
+#: No reference equivalent: rpc:call rides Erlang distribution there.
+RPC_FIELDS = (
+    "rpc_calls", "rpc_retries", "rpc_timeouts", "rpc_unreachable",
+    "rpc_remote_errors", "rpc_dedup_hits", "rpc_requests_executed",
+    "rpc_responses_resent", "rpc_expired",
+)
+
+#: node-wide segment-writer counter fields (ra_log_segment_writer.erl:
+#: 37-52 — same names)
+SEGMENT_WRITER_FIELDS = ("mem_tables", "segments", "entries",
+                         "bytes_written")
+
+#: classic replication-batching health: the shape of
+#: ``RaNode.classic_stats()`` — stamped into bench_classic's JSON tail
+#: (both phases) and wired into the leader system's Observatory as the
+#: ``classic`` source.  ``aer_batches_sent`` counts multi-entry
+#: AppendEntries frames built by leaders hosted on the node and
+#: ``aer_batch_entries`` the entries they carried (their ratio is the
+#: realized AER batching factor); ``entries_per_batch_p50``/
+#: ``entries_per_batch_p99``/``entries_per_batch_mean`` come from the
+#: cores' bounded batch-size reservoirs; ``records_per_fsync`` — the
+#: group-commit fan-in half of the pair — is Wal.stats()'s
+#: amortization factor, stamped next to the AER numbers by the
+#: embedding bench so one doc answers "how batched was replication,
+#: end to end".
+CLASSIC_FIELDS = (
+    "aer_batches_sent", "aer_batch_entries", "entries_per_batch_p50",
+    "entries_per_batch_p99", "entries_per_batch_mean",
+    "records_per_fsync",
+)
+
+#: placement failover control plane (the reference's ``placement/``):
+#: the EngineSupervisor's counter group.  Detector tier:
+#: ``heartbeats`` probe responses heard (delayed arrivals count when
+#: they land), ``suspects``/``downs`` verdict escalations (a suspect
+#: that recovers inside the hysteresis window never becomes a down —
+#: the slow-fsync guard), ``recoveries`` suspect→up de-escalations.
+#: Re-placement tier: ``migrations`` lane-range re-placements
+#: committed through the placement table, ``migrate_retries`` extra
+#: attempts the bounded commit loop needed beyond the first,
+#: ``giveups`` bounded loops that exhausted their deadline (each also
+#: emits ``placement.giveup``), ``adopts`` victim engines restored
+#: into a survivor's lane space, ``rehomed_sessions`` sessions
+#: re-bound to a new home (epoch bump + slot claim).  Cross-host tier
+#:: ``stale_probe_drops`` probe replies discarded because
+#: the slot was re-provisioned to a newer generation while the probe
+#: was in flight (each also emits ``placement.stale_probe``), and
+#: ``rehome_hints`` frames refused by a serving listener with a typed
+#: REHOME hint because the lane's home moved (each refusal batch also
+#: emits ``placement.rehome_hint``).
+PLACEMENT_FIELDS = (
+    "heartbeats", "suspects", "downs", "recoveries", "migrations",
+    "migrate_retries", "giveups", "adopts", "rehomed_sessions",
+    "stale_probe_drops", "rehome_hints",
+)
+
 
 #: host-side dispatch-pipeline counters of ``LockstepEngine``:
 #: ``dispatches`` device programs launched by the host, ``inner_steps``
@@ -171,6 +277,13 @@ DEVICE_FIELDS = (
 
 #: every counter-field group of the port, by the reference's group names
 FIELD_REGISTRY = {
+    "log": LOG_FIELDS,
+    "server": SERVER_FIELDS,
+    "metric": METRIC_FIELDS,
+    "rpc": RPC_FIELDS,
+    "segment_writer": SEGMENT_WRITER_FIELDS,
+    "classic": CLASSIC_FIELDS,
+    "placement": PLACEMENT_FIELDS,
     "wal": WAL_FIELDS,
     "engine_wal": ENGINE_WAL_FIELDS,
     "engine_pipeline": ENGINE_PIPELINE_FIELDS,
@@ -183,3 +296,73 @@ FIELD_REGISTRY = {
     "wire": WIRE_FIELDS,
     "device": DEVICE_FIELDS,
 }
+
+
+class Counters:
+    """Named counter groups (the seshat role)."""
+
+    def __init__(self) -> None:
+        self._groups: dict[str, dict] = {}
+        self._lock = threading.Lock()
+        #: increments addressed to an unknown group or field.  The old
+        #: behaviour silently dropped them — a typo'd field name lost
+        #: its events with no trace; now every drop is itself counted
+        #: (the seshat-style self-metric; asserted 0 under the normal
+        #: workloads in tests).
+        self.dropped = 0
+
+    def new(self, name: str, fields=SERVER_FIELDS) -> dict:
+        with self._lock:
+            g = self._groups.get(name)
+            if g is None:
+                g = {f: 0 for f in fields}
+                self._groups[name] = g
+            return g
+
+    def incr(self, name: str, field: str, n: int = 1) -> None:
+        g = self._groups.get(name)
+        if g is None or field not in g:
+            self.dropped += 1
+            return
+        g[field] += n
+
+    def self_metrics(self) -> dict:
+        """The registry's own health: ``telemetry_dropped`` counts
+        increments lost to unknown group/field names (MUST stay 0 — a
+        nonzero value means an instrumentation site and the field
+        registry disagree)."""
+        return {"telemetry_dropped": self.dropped}
+
+    def fetch(self, name: str) -> Optional[dict]:
+        g = self._groups.get(name)
+        return dict(g) if g is not None else None
+
+    def delete(self, name: str) -> None:
+        with self._lock:
+            self._groups.pop(name, None)
+
+    def overview(self) -> dict:
+        with self._lock:
+            return {k: dict(v) for k, v in self._groups.items()}
+
+
+class Leaderboard:
+    """cluster name -> (leader, members); written on leader change, read
+    lock-free by clients (ra_leaderboard.erl:23-34)."""
+
+    def __init__(self) -> None:
+        self._tab: dict[str, tuple] = {}
+
+    def record(self, cluster_name: str, leader, members) -> None:
+        self._tab[cluster_name] = (leader, tuple(members))
+
+    def lookup_leader(self, cluster_name: str):
+        got = self._tab.get(cluster_name)
+        return got[0] if got else None
+
+    def lookup_members(self, cluster_name: str):
+        got = self._tab.get(cluster_name)
+        return got[1] if got else None
+
+    def overview(self) -> dict:
+        return dict(self._tab)

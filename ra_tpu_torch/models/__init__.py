@@ -1,9 +1,13 @@
 from .counter import CounterMachine
+from .fifo import FifoMachine
 from .jit_fifo import JitFifoMachine
 from .jit_kv import JitKvMachine
+from .kv import KvMachine
+from .queue import QueueMachine
 from .registers import RegisterMachine
 from .stream import StreamMachine
 from .ttl_kv import TtlKvMachine
 
-__all__ = ["CounterMachine", "JitFifoMachine", "JitKvMachine",
-           "RegisterMachine", "StreamMachine", "TtlKvMachine"]
+__all__ = ["CounterMachine", "FifoMachine", "JitFifoMachine",
+           "JitKvMachine", "KvMachine", "QueueMachine", "RegisterMachine",
+           "StreamMachine", "TtlKvMachine"]

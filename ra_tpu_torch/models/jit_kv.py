@@ -163,3 +163,8 @@ class JitKvMachine(JitMachine):
     def decode_query_reply(self, reply):
         code, val = int(reply[..., 0]), int(reply[..., 1])
         return (code, None if val < 0 else val)
+
+
+def query_kv(state) -> dict:
+    """Query fun: present keys as a plain dict (host path)."""
+    return {k: v for k, v in enumerate(state.tolist()) if v >= 0}

@@ -113,3 +113,7 @@ class RegisterMachine(JitMachine):
     def decode_reply(self, reply) -> int:
         return int(reply)
 
+
+def query_registers(state) -> list:
+    """Query fun: the register file as a plain list (host path)."""
+    return state.tolist()

@@ -67,6 +67,8 @@ def _load():
         return None
     lib.ra_wal_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
     lib.ra_wal_open.restype = ctypes.c_int
+    lib.ra_wal_open_sync.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.ra_wal_open_sync.restype = ctypes.c_int
     lib.ra_wal_sync.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.ra_wal_sync.restype = ctypes.c_int
     lib.ra_wal_write_batch.argtypes = [ctypes.c_int, ctypes.c_char_p,
@@ -125,11 +127,18 @@ class NativeIO:
         return os.open(path, flags, 0o644)
 
     # sync_mode: 0=none, 1=fdatasync, 2=fsync
-    def wal_open(self, path: str, truncate: bool = False) -> int:
+    def wal_open(self, path: str, truncate: bool = False,
+                 o_sync: bool = False) -> int:
+        """o_sync opens the fd with O_SYNC: every write(2) is durable on
+        return (the WAL's ``o_sync`` write strategy)."""
         if self.native:
-            fd = self.lib.ra_wal_open(path.encode(), 1 if truncate else 0)
+            fn = self.lib.ra_wal_open_sync if o_sync else \
+                self.lib.ra_wal_open
+            fd = fn(path.encode(), 1 if truncate else 0)
         else:
             flags = os.O_CREAT | os.O_RDWR | os.O_APPEND
+            if o_sync:
+                flags |= os.O_SYNC
             if truncate:
                 flags |= os.O_TRUNC
             fd = os.open(path, flags, 0o644)
@@ -140,7 +149,8 @@ class NativeIO:
 
     def sync(self, fd: int, mode: int = 1) -> None:
         """Standalone durability syscall after a batch written with
-        sync_mode 0 (the WAL times it on its own)."""
+        sync_mode 0 (the WAL times it on its own; the sync_after_notify
+        strategy runs it after the confirms)."""
         if mode == 0:
             return
         self._stats["syncs"] += 1

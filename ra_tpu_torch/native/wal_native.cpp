@@ -13,6 +13,7 @@
 //
 // Exposed (C ABI):
 //   int      ra_wal_open(const char *path, int truncate);
+//   int      ra_wal_open_sync(const char *path, int truncate); // O_SYNC
 //   int      ra_wal_sync(int fd, int mode);   // 1=fdatasync 2=fsync
 //   long     ra_wal_write_batch(int fd, const uint8_t *buf, size_t len,
 //                               int sync_mode);  // 0=none 1=fdatasync 2=fsync
@@ -32,6 +33,15 @@ extern "C" {
 
 int ra_wal_open(const char *path, int truncate) {
   int flags = O_CREAT | O_RDWR | O_APPEND;
+  if (truncate) flags |= O_TRUNC;
+  return open(path, flags, 0644);
+}
+
+// o_sync variant: the file descriptor itself is synchronous, so write(2)
+// returns only after the data is durable: the `o_sync` write strategy
+// (ra_log_wal.erl:66-96), where no separate fsync happens.
+int ra_wal_open_sync(const char *path, int truncate) {
+  int flags = O_CREAT | O_RDWR | O_APPEND | O_SYNC;
   if (truncate) flags |= O_TRUNC;
   return open(path, flags, 0644);
 }

@@ -122,6 +122,15 @@ class PhaseStats:
             for p in self._fields:
                 self._res[p].clear()
 
+    def encode_share_pct(self) -> float:
+        """Codec encode time as a percentage of all phase time this
+        accumulator has seen (the classic plane's encode share, which
+        ``RaNode.classic_stats`` reports); -1.0 until a sample lands."""
+        with self._lock:
+            tot = sum(self._total_ms.values())
+            enc = self._total_ms.get("encode", 0.0)
+        return round(100.0 * enc / tot, 2) if tot > 0 else -1.0
+
 
 def _host_value(arr: np.ndarray) -> Any:
     """A harvested numpy value as a python scalar (floats rounded to 4

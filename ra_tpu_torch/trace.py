@@ -13,17 +13,47 @@ contract:
 Instrumented sites: the durable engine's dispatch and its WAL bridge
 (``engine/lockstep.py``, ``engine/durable.py``), the WAL batch loop
 (``log/wal.py``), and anything user code wraps in ``trace.span``.
+Classic-path commands carry a causal trace context minted at ingress
+(:func:`new_trace_ctx`, reproducible under :func:`set_trace_origin`).
 :func:`torch_profile`, the counterpart of the reference's
 ``jax_profile``, captures a device timeline with ``torch.profiler``.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import threading
 import time
 from typing import Any, Iterator, Optional
+
+# -- causal trace context --------------------------------------------------
+#
+# Every classic-path command gets a trace id at ingress (api.py and the
+# reliable RPC).  Ids are DETERMINISTIC given the run: a process-wide
+# counter under a settable origin prefix, so a seeded run replays the
+# same ids (set_trace_origin("soak42")) while the default prefix keeps
+# ids unique across cooperating processes.  The context is a plain short
+# string: it rides command objects, RPC frames and pickles untouched, and
+# flight-recorder events join on it (ra_tpu_torch.blackbox).
+
+_trace_seq = itertools.count(1)
+_trace_origin = f"p{os.getpid()}"
+
+
+def set_trace_origin(origin: str) -> None:
+    """Set the trace-id prefix AND restart the sequence — the knob a
+    seeded run uses to make its command trace ids reproducible."""
+    global _trace_seq, _trace_origin
+    _trace_origin = str(origin)
+    _trace_seq = itertools.count(1)
+
+
+def new_trace_ctx(origin: Optional[str] = None) -> str:
+    """Mint one trace context: ``<origin>-<seq>``."""
+    return f"{origin or _trace_origin}-{next(_trace_seq)}"
+
 
 #: the installed tracer, or None (tracing disabled).  Module attribute on
 #: purpose: instrumented call sites read it once per operation.

@@ -1,5 +1,14 @@
-"""Deterministic transport fault plans: the fault-plan registry of
-``ra_tpu/transport/rpc.py``.
+"""Reliable control-plane RPC and deterministic transport fault plans:
+the port's own copy of ``ra_tpu/transport/rpc.py``.
+
+* **Sender**: :func:`reliable_node_call` -- per-request ids, retry with
+  exponential backoff and jitter, deadline propagation, reconnect-aware
+  routing and typed failures (:class:`Unreachable`, :class:`RpcTimeout`,
+  :class:`RemoteError`) instead of a silent hang.  ``api.node_call``
+  reaches it for a node its router cannot reach in process.
+* **Receiver**: :class:`RpcReceiver` -- an at-most-once execution guard:
+  a bounded LRU of request ids maps retries of an executed request onto
+  its cached response, and retries of an in-flight one onto nothing.
 
 A :class:`FaultPlan` is a seeded fault schedule (drop / delay /
 duplicate / reorder probabilities per peer and frame class, partitions,
@@ -13,18 +22,307 @@ reference does.
 
 Ported with the plan: its specs, the registry, ``quiet``,
 ``unregister``, ``partition``/``heal`` and ``overview``.  The per-frame
-decision (``decide``) and the reliable RPC around it belong to the host
-transport, which is not ported: no transport of the port consults a plan.
+decision (``decide``) belongs to the TCP transport, which is not ported
+yet: no transport of the port consults a plan.
 """
 from __future__ import annotations
 
+import random
+import threading
+import time
+import uuid
 import weakref
-from dataclasses import dataclass
-from typing import Optional
+from collections import OrderedDict
+from dataclasses import dataclass, replace
+from typing import Any, Callable, Optional
 
-from ..blackbox import RECORDER
+from .. import trace
+from ..blackbox import RECORDER, record
 
-__all__ = ["FaultDecision", "FaultPlan", "FaultSpec", "live_fault_plans"]
+__all__ = [
+    "FaultDecision",
+    "FaultPlan",
+    "FaultSpec",
+    "RemoteError",
+    "RpcError",
+    "RpcReceiver",
+    "RpcRequest",
+    "RpcResponse",
+    "RpcTimeout",
+    "Unreachable",
+    "live_fault_plans",
+    "reliable_node_call",
+    "stamp_origin",
+]
+
+# ---------------------------------------------------------------------------
+# Error surfaces (ra.erl's {error, noproc|nodedown|timeout} triad)
+# ---------------------------------------------------------------------------
+
+class RpcError(RuntimeError):
+    """Base class for control-plane RPC failures."""
+
+
+class Unreachable(RpcError):
+    """The target node cannot be reached: no route, or the failure
+    detector holds it suspect/down at the deadline (nodedown)."""
+
+
+class RpcTimeout(RpcError, TimeoutError):
+    """The call's deadline elapsed while the peer looked reachable —
+    requests were sent but no response arrived in time."""
+
+
+class RemoteError(RpcError):
+    """The remote executor itself failed; carries the remote repr."""
+
+
+# ---------------------------------------------------------------------------
+# Wire records
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RpcRequest:
+    """One control-plane request.  ``rid`` is stable across retries —
+    it is the at-most-once dedup key.  ``deadline_unix`` propagates the
+    caller's remaining budget (wall clock: monotonic clocks are not
+    comparable across processes; cross-host skew makes this advisory)."""
+
+    rid: str
+    node: str                 # target node name (the $node scope)
+    op: str
+    args: dict
+    deadline_unix: float = 0.0
+    attempt: int = 1
+    origin: tuple = ()        # sender's listen addr, filled by transport
+    origin_router: str = ""   # sender's router id (wildcard-bind safe)
+    #: causal trace context: minted at the sender's ingress,
+    #: STABLE across retries like ``rid`` — a duplicate delivery dedups
+    #: receiver-side and records as a ``rpc.dup`` event under the same
+    #: trace id, so at-most-once execution is visible, not just true
+    trace_ctx: str = ""
+
+
+@dataclass(frozen=True)
+class RpcResponse:
+    rid: str
+    ok: bool
+    value: Any = None
+    error: str = ""
+    #: a retryable failure means "not executed, try again" (e.g. the
+    #: target RaNode is not registered on that host YET — a restarting
+    #: worker); non-retryable means the executor crashed or refused
+    retryable: bool = False
+
+
+# ---------------------------------------------------------------------------
+# Receiver-side at-most-once guard
+# ---------------------------------------------------------------------------
+
+class RpcReceiver:
+    """Dedup/response cache giving retried requests at-most-once
+    execution.  ``execute(req, done)`` starts the operation and calls
+    ``done(result)`` exactly once when finished; it returns False when
+    the target is not hosted here (retryable, NOT cached — a later
+    retry may find the node registered)."""
+
+    CACHE_MAX = 1024
+
+    def __init__(self, execute: Callable[[RpcRequest, Callable], bool],
+                 counters: Optional[dict] = None) -> None:
+        self._execute = execute
+        self._cache: OrderedDict = OrderedDict()  # rid -> (status, resp)
+        self._lock = threading.Lock()
+        self.counters = counters if counters is not None else {}
+
+    def _note(self, name: str, n: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    def handle(self, req: RpcRequest,
+               respond: Callable[[RpcResponse], None]) -> None:
+        with self._lock:
+            ent = self._cache.get(req.rid)
+            if ent is not None:
+                # a retry of something we already saw: never re-execute
+                self._cache.move_to_end(req.rid)
+                self._note("rpc_dedup_hits")
+                # the duplicate delivery is VISIBLE under the same
+                # trace id while the verb still runs at most once
+                record("rpc.dup", trace=req.trace_ctx, rid=req.rid,
+                       op=req.op, attempt=req.attempt)
+                status, resp = ent
+                if status == "done":
+                    self._note("rpc_responses_resent")
+                    respond(resp)
+                # in-flight: say nothing — completion will respond, and
+                # any later retry lands on the cached response
+                return
+            self._cache[req.rid] = ("running", None)
+            while len(self._cache) > self.CACHE_MAX:
+                # evict oldest DONE entry only: evicting a 'running'
+                # rid would let its retry re-execute the verb — the
+                # exact double-execution this cache exists to prevent.
+                # If everything is in flight the cache grows past the
+                # cap, bounded by concurrent executions.
+                for key, (status, _resp) in self._cache.items():
+                    if status != "running":
+                        del self._cache[key]
+                        break
+                else:
+                    break
+        if req.deadline_unix and time.time() > req.deadline_unix:
+            # the sender's budget is spent: executing now could only
+            # produce a zombie side effect nobody awaits
+            self._note("rpc_expired")
+            record("rpc.expired", trace=req.trace_ctx, rid=req.rid,
+                   op=req.op)
+            resp = RpcResponse(req.rid, ok=False, error="deadline_expired")
+            with self._lock:
+                self._cache[req.rid] = ("done", resp)
+            respond(resp)
+            return
+
+        def done(result: Any) -> None:
+            resp = RpcResponse(req.rid, ok=True, value=result)
+            with self._lock:
+                self._cache[req.rid] = ("done", resp)
+            respond(resp)
+
+        self._note("rpc_requests_executed")
+        record("rpc.recv", trace=req.trace_ctx, rid=req.rid, op=req.op,
+               attempt=req.attempt)
+        try:
+            started = self._execute(req, done)
+        except Exception as exc:  # noqa: BLE001 — travels to the caller
+            resp = RpcResponse(req.rid, ok=False, error=repr(exc)[:400])
+            with self._lock:
+                self._cache[req.rid] = ("done", resp)
+            respond(resp)
+            return
+        if not started:
+            # target node not hosted here (yet): forget the rid so a
+            # retry can execute once it registers, and tell the sender
+            # to keep trying
+            self._note("rpc_requests_executed", -1)
+            with self._lock:
+                self._cache.pop(req.rid, None)
+            respond(RpcResponse(req.rid, ok=False, retryable=True,
+                                error=f"node {req.node!r} not hosted"))
+
+    def overview(self) -> dict:
+        with self._lock:
+            return {"cached": len(self._cache), **dict(self.counters)}
+
+
+# ---------------------------------------------------------------------------
+# Sender-side retry loop
+# ---------------------------------------------------------------------------
+
+#: per-attempt response wait: grows exponentially from FIRST to CAP so a
+#: lost first request retries fast while a genuinely slow executor
+#: (start_server recovering a long log) is not hammered
+ATTEMPT_WAIT_FIRST = 0.3
+ATTEMPT_WAIT_CAP = 3.0
+#: sleep between attempts: exponential with full jitter, capped
+BACKOFF_FIRST = 0.05
+BACKOFF_CAP = 1.0
+
+
+def _attempt_wait(attempt: int) -> float:
+    return min(ATTEMPT_WAIT_FIRST * (2 ** (attempt - 1)), ATTEMPT_WAIT_CAP)
+
+
+def reliable_node_call(router, node: str, op: str, args: dict,
+                       timeout: float = 60.0,
+                       trace_ctx: Optional[str] = None) -> Any:
+    """Call ``op`` on ``node``'s control plane with retries, dedup and
+    typed failures — the rpc:call-over-distribution role.  The router
+    must provide the RPC transport surface (TcpRouter does); a router
+    without it (LocalRouter reaching for a remote node) is Unreachable
+    by construction.  A trace context (minted here if the caller did
+    not propagate one) rides every attempt's frame: retries and
+    duplicate deliveries record under ONE id."""
+    if getattr(router, "rpc_register", None) is None:
+        raise Unreachable(
+            f"node {node} is unreachable for {op}: router has no RPC "
+            "transport (in-process LocalRouter has no remote reach)")
+    if not router.rpc_routable(node):
+        router.rpc_note("rpc_unreachable")
+        raise Unreachable(
+            f"node {node} is unreachable for {op}: not in the address "
+            "book")
+    router.rpc_note("rpc_calls")
+    rid = uuid.uuid4().hex
+    ctx = trace_ctx or trace.new_trace_ctx()
+    rng = random.Random(rid)
+    deadline = time.monotonic() + timeout
+    fut = router.rpc_register(rid)
+    attempt = 0
+    try:
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            attempt += 1
+            if attempt > 1:
+                router.rpc_note("rpc_retries")
+                # reconnect-aware routing: a cached connection to a
+                # peer the detector suspects is exactly the half-dead
+                # socket that eats one-shot sends
+                router.rpc_invalidate_peer(node)
+            req = RpcRequest(rid=rid, node=node, op=op, args=dict(args),
+                             deadline_unix=time.time() + remaining,
+                             attempt=attempt, trace_ctx=ctx)
+            record("rpc.send", trace=ctx, rid=rid, op=op, node=node,
+                   attempt=attempt)
+            router.rpc_send(node, req)
+            try:
+                resp = fut.wait(min(_attempt_wait(attempt), remaining))
+            except TimeoutError:
+                pause = rng.uniform(0.5, 1.0) * min(
+                    BACKOFF_FIRST * (2 ** (attempt - 1)), BACKOFF_CAP)
+                pause = min(pause, max(deadline - time.monotonic(), 0.0))
+                if pause > 0:
+                    time.sleep(pause)
+                continue
+            if resp.ok:
+                return resp.value
+            if resp.retryable:
+                fut = router.rpc_register(rid)  # re-arm for the retry
+                # same exponential schedule as the timeout branch: a
+                # restarting worker can take tens of seconds to
+                # register its node — constant 50ms pacing would hammer
+                # it with hundreds of round trips
+                pause = rng.uniform(0.5, 1.0) * min(
+                    BACKOFF_FIRST * (2 ** (attempt - 1)), BACKOFF_CAP)
+                time.sleep(min(pause,
+                               max(deadline - time.monotonic(), 0.0)))
+                continue
+            if resp.error == "deadline_expired":
+                break  # surfaces as RpcTimeout below
+            router.rpc_note("rpc_remote_errors")
+            raise RemoteError(
+                f"rpc {op} on {node} failed remotely: {resp.error}")
+    finally:
+        router.rpc_forget(rid)
+    state = router.rpc_peer_state(node) if \
+        hasattr(router, "rpc_peer_state") else None
+    if state in ("suspect", "down", "never-connected"):
+        router.rpc_note("rpc_unreachable")
+        raise Unreachable(
+            f"node {node} is unreachable for {op} "
+            f"(peer state: {state}, {attempt} attempts)")
+    router.rpc_note("rpc_timeouts")
+    raise RpcTimeout(
+        f"rpc {op} to {node} timed out after {timeout:.1f}s "
+        f"({attempt} attempts)")
+
+
+# ---------------------------------------------------------------------------
+# Deterministic fault injection
+# ---------------------------------------------------------------------------
+
+
 
 
 @dataclass(frozen=True)
@@ -191,3 +489,9 @@ class FaultPlan:
             out["domain_matrix"] = sorted(
                 f"{src}->{dst}" for src, dst in self._matrix)
         return out
+
+
+def stamp_origin(req: RpcRequest, origin: tuple,
+                 router_id: str) -> RpcRequest:
+    """Fill the transport-owned origin fields just before the wire."""
+    return replace(req, origin=tuple(origin), origin_router=router_id)

@@ -37,7 +37,15 @@ def test_port_files_found():
     files = _port_files()
     assert len(files) >= 12
     for tail in (("engine", "lockstep.py"), ("parallel", "mesh.py"),
-                 ("engine", "shards.py"), ("entry.py",)):
+                 ("engine", "shards.py"), ("entry.py",),
+                 ("core", "types.py"), ("core", "aux.py"),
+                 ("core", "server.py"), ("utils", "flru.py"), ("codec.py",),
+                 ("log", "snapshot.py"), ("log", "memory.py"),
+                 ("log", "segment.py"), ("log", "durable.py"),
+                 ("machines.py",), ("machine_ets.py",), ("node.py",),
+                 ("directory.py",), ("system.py",), ("api.py",),
+                 ("models", "kv.py"), ("models", "fifo.py"),
+                 ("models", "queue.py")):
         assert any(f.endswith(os.path.join(*tail)) for f in files), tail
 
 
@@ -57,14 +65,37 @@ def test_importing_the_port_loads_no_jax():
             "ra_tpu_torch.ingress, ra_tpu_torch.wire, "
             "ra_tpu_torch.wire.soak, ra_tpu_torch.parallel, "
             "ra_tpu_torch.parallel.mesh, ra_tpu_torch.engine.shards, "
-            "ra_tpu_torch.entry\n"
+            "ra_tpu_torch.entry, ra_tpu_torch.core.server, "
+            "ra_tpu_torch.log.durable, ra_tpu_torch.node, "
+            "ra_tpu_torch.system, ra_tpu_torch.api, ra_tpu_torch.machines, "
+            "ra_tpu_torch.machine_ets, ra_tpu_torch.directory, "
+            "ra_tpu_torch.codec, ra_tpu_torch.transport.rpc\n"
             "ra_tpu_torch.LockstepEngine, ra_tpu_torch.open_engine\n"
+            "ra_tpu_torch.RaNode, ra_tpu_torch.RaSystem, ra_tpu_torch.aux, "
+            "ra_tpu_torch.start_cluster, ra_tpu_torch.KvMachine\n"
             "from ra_tpu_torch import native\n"
             "assert not native.IO._loaded   # no g++ at import\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ra_tpu'))\n"
             "assert not bad, bad\n"
             "assert 'ra_tpu_torch.engine.lockstep' in sys.modules\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_import_alone_loads_only_the_package_file():
+    """``import ra_tpu_torch`` loads nothing but its own ``__init__``: no
+    torch, no submodule, no compiler; the classic entry points are named
+    in its lazy exports."""
+    code = ("import sys, ra_tpu_torch as t\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'ra_tpu') or m.startswith('ra_tpu_torch.'))\n"
+            "assert not bad, bad\n"
+            "want = {'RaNode', 'LocalRouter', 'RaSystem', 'Directory', "
+            "'start_cluster', 'process_command', 'consistent_query', "
+            "'add_member', 'remove_member', 'restart_server', 'aux'}\n"
+            "assert want <= set(t.__all__), want - set(t.__all__)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
