@@ -199,6 +199,20 @@ non-zero (there is no CPU path and no fallback to a plain version):
              card behind the same clients with seeded int32 puts and gets:
              the final state equal to a plain model of the acknowledged
              puts in log order on every member and after a reopen
+  placement_parity
+             the failover soak at the reference test's size on the card
+             and on the CPU (then on the card with WAL disk faults): 0
+             lost acked, 0 double applied, a migration, one down, 8
+             sessions re-homed; the adopted engine's recovered state on
+             the card equal to open_engine's recovery of the victim's
+             directory on the CPU
+  placement_path
+             two LaneEngineHosts of 1,024 lanes x 3 (2 WAL shards under
+             build/, K = 4), 10,000 loopback connections x 2 sessions
+             each, 8 waves of 50,000 ops a host, engine A kill-9'd at wave
+             3 and adopted by B: the oracle over both engines, recovery
+             seconds, counters, client rates around the kill, the idle
+             share of the last two waves
 
 The fold_kernels phase also holds the stream decoder (random, append-only,
 int32-edge and invalid-op windows, a ring of 5 and one of 30,000), and a
@@ -208,7 +222,8 @@ stream and the dedup counter.
 
 then the kernels summary line (launches on every path, each counted from
 0 just before it: main, superstep, durable, fifo, kv, stream, wire, tune,
-reads, mesh_parity, mesh_path, classic_parity and classic_path;
+reads, mesh_parity, mesh_path, classic_parity, classic_path,
+placement_parity and placement_path;
 "launches" is
 the count on the kernel's own path), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -2157,17 +2172,12 @@ def run_machine_path(phase: str, mix: str, machine, fold: str, blocks,
     (16 reads a lane); ``check`` then also takes ``(served, committed)``:
     each dispatch's observed read outcome and the committed count a lane
     before it.  Returns the launches of every kernel on the path."""
-    from ra_tpu_torch.ops import commit_phase, fifo_fold, pallas_quorum, \
-        slot_fold
     from ra_tpu_torch.readback import Readback
     from ra_tpu_torch.step_profile import device_rows
     N, P, cmds, K = n_lanes, 5, 128, 8
     warm, timed, profiled = 2, 25, 3
-    mods = {"evaluate_quorum": pallas_quorum, "commit_phase": commit_phase,
-            "slot_fold": slot_fold, "fifo_fold": fifo_fold}
+    mods = kernel_modules(zero=True)
     kernel = f"{fold}_kernel"
-    for mod in mods.values():
-        mod.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
     eng = LockstepEngine(machine, N, P, ring_capacity=1024,
                          max_step_cmds=cmds, apply_window=130,
@@ -2694,6 +2704,34 @@ def phase_stream_path(LockstepEngine, DispatchAheadDriver, dev, seed: int,
     return out
 
 
+class WaveTrace:
+    """A soak's ``on_wave`` hook: each wave's start time (and the
+    drain's) in ``starts``, and a torch.profiler window over waves
+    [first, last)."""
+
+    def __init__(self, first: int, last: int) -> None:
+        self.first, self.last = first, last
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.starts: list = []
+
+    def __call__(self, w: int) -> None:
+        if w in (self.first, self.last):
+            torch.cuda.synchronize()
+            (self.prof.start if w == self.first else self.prof.stop)()
+        self.starts.append(time.perf_counter())
+
+    def busy(self) -> tuple:
+        """(window seconds, device-busy seconds, idle share): kernels and
+        copies from the profile, against the window's wall time."""
+        from ra_tpu_torch.step_profile import device_rows
+        groups = device_rows(self.prof)
+        busy = sum(e.self_device_time_total for g in ("kernels", "copies")
+                   for e in groups[g]) / 1e6
+        wall = self.starts[self.last] - self.starts[self.first]
+        return wall, busy, 1.0 - busy / wall
+
+
 def phase_wire_path(dev, n_lanes: int = 1024, waves: int = 12,
                     traced: int = 3) -> dict:
     """``run_wire_soak`` at ``bench.py --wire``'s defaults on the card:
@@ -2710,43 +2748,23 @@ def phase_wire_path(dev, n_lanes: int = 1024, waves: int = 12,
     ones show the profiler's cost), and the dedup fold's device time at
     the path's window."""
     from ra_tpu_torch import devicewatch
-    from ra_tpu_torch.ops import commit_phase, fifo_fold, pallas_quorum, \
-        slot_fold
-    from ra_tpu_torch.step_profile import device_rows
     from ra_tpu_torch.wire import DedupCounterMachine
     from ra_tpu_torch.wire.soak import run_wire_soak
-    mods = {"evaluate_quorum": pallas_quorum, "commit_phase": commit_phase,
-            "slot_fold": slot_fold, "fifo_fold": fifo_fold}
-    for mod in mods.values():
-        mod.LAUNCHES = 0
+    mods = kernel_modules(zero=True)
     data = WAL_ROOT / "wire"
     shutil.rmtree(data, ignore_errors=True)
     t0 = time.perf_counter()
-    prof = profile(activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA])
-    starts: list = []           # each wave's start, and the drain's
-
-    def on_wave(w):
-        if w == waves - traced:
-            torch.cuda.synchronize()
-            prof.start()
-        if w == waves:
-            torch.cuda.synchronize()
-            prof.stop()
-        starts.append(time.perf_counter())
+    wt = WaveTrace(waves - traced, waves)
     row = run_wire_soak(0, durable_dir=str(data), device=dev,
                         conns=100_000, lanes=n_lanes, waves=waves,
                         wave_ops=50_000, ring_records=32, socket_conns=32,
                         socket_ops=16, superstep_k=4, cmds=16, wal_shards=2,
-                        on_wave=on_wave)
+                        on_wave=wt)
     seconds = time.perf_counter() - t0
     launches = {name: mod.LAUNCHES for name, mod in mods.items()}
     shutil.rmtree(data, ignore_errors=True)
-    wave_s = np.diff(starts).tolist()
-    traced_s = starts[waves] - starts[waves - traced]
-    groups = device_rows(prof)
-    busy_s = sum(e.self_device_time_total for g in ("kernels", "copies")
-                 for e in groups[g]) / 1e6
+    wave_s = np.diff(wt.starts).tolist()
+    traced_s, busy_s, idle = wt.busy()
     if launches["commit_phase"] == 0 or launches["slot_fold"] or \
             launches["fifo_fold"] or launches["evaluate_quorum"]:
         raise AssertionError(f"wire_path: launches {launches}")
@@ -2777,7 +2795,7 @@ def phase_wire_path(dev, n_lanes: int = 1024, waves: int = 12,
            "wave_s": wave_s, "traced_waves": [waves - traced, waves],
            "traced_waves_s": traced_s,
            "traced_waves_device_busy_s": busy_s,
-           "traced_waves_device_idle_share": 1.0 - busy_s / traced_s,
+           "traced_waves_device_idle_share": idle,
            **{k: row[k] for k in (
                "wire_cmds_per_s", "wire_shed_rate",
                "wire_reconnect_recovery_s", "elapsed_s", "work_s",
@@ -2793,11 +2811,16 @@ def phase_wire_path(dev, n_lanes: int = 1024, waves: int = 12,
 
 # -- the observability and control loop: tune_path and reads_path -----------
 
-def kernel_modules() -> dict:
+def kernel_modules(zero: bool = False) -> dict:
+    """The four kernels' wrapper modules by name; ``zero`` sets every
+    launch count to 0 (a path's count starts just before it)."""
     from ra_tpu_torch.ops import commit_phase, fifo_fold, pallas_quorum, \
         slot_fold
-    return {"evaluate_quorum": pallas_quorum, "commit_phase": commit_phase,
+    mods = {"evaluate_quorum": pallas_quorum, "commit_phase": commit_phase,
             "slot_fold": slot_fold, "fifo_fold": fifo_fold}
+    for m in mods.values() if zero else ():
+        m.LAUNCHES = 0
+    return mods
 
 
 def phase_shares(rates: dict) -> dict:
@@ -3096,9 +3119,7 @@ def phase_tune_path(dev, seconds: float = 30.0, k_hi: int = 64) -> dict:
     """``tune_loop`` at full width: 10,000 x 5, 128 commands a lane a
     step, its WAL under build/; the launches of every kernel counted from
     0 just before."""
-    mods = kernel_modules()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    mods = kernel_modules(zero=True)
     t0 = time.perf_counter()
     out = tune_loop(dev, str(WAL_ROOT / "tune"), seconds=seconds, k_hi=k_hi,
                     profile_dir=str(WAL_ROOT / "tune_profile"))
@@ -3386,9 +3407,7 @@ def reads_loop(dev, wal_dir: str, *, lanes: int = 1024, members: int = 3,
 def phase_reads_path(dev) -> dict:
     """``reads_loop`` at ``bench.py --reads``' defaults, its WAL under
     build/; the launches of every kernel counted from 0 just before."""
-    mods = kernel_modules()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    mods = kernel_modules(zero=True)
     t0 = time.perf_counter()
     out = reads_loop(dev, str(WAL_ROOT / "reads"))
     launches = {name: m.LAUNCHES for name, m in mods.items()}
@@ -3440,9 +3459,7 @@ def phase_mesh_parity(LockstepEngine, state_to_numpy, dev) -> dict:
     from ra_tpu_torch.parallel.mesh import (lane_mesh,
                                             mesh_superstep_driver,
                                             shard_engine_state)
-    mods = kernel_modules()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    mods = kernel_modules(zero=True)
     t0 = time.perf_counter()
     N, kc = 1024, 8
     rows = []
@@ -3800,9 +3817,7 @@ def phase_mesh_path(dev, volatile: dict, state_to_numpy) -> dict:
     2 s a point); and the durable 1x4 run."""
     from ra_tpu_torch.parallel.mesh import (ladder_rungs, lane_ladder,
                                             mesh_shapes)
-    mods = kernel_modules()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    mods = kernel_modules(zero=True)
     t0 = time.perf_counter()
     windows = [mesh_counter_window(dev, 1, 5), mesh_counter_window(dev, 2, 4)]
     for w in windows:
@@ -4030,9 +4045,7 @@ def phase_classic_parity(dev) -> dict:
     state equal again, on the card."""
     from ra_tpu_torch.models import JitFifoMachine, JitKvMachine, \
         RegisterMachine
-    mods = kernel_modules()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    mods = kernel_modules(zero=True)
     t0 = time.perf_counter()
     n = 2000
     scripts = classic_scripts(n, seed=10)
@@ -4278,9 +4291,7 @@ def phase_classic_path(dev, card: str) -> dict:
     plain model of the acknowledged puts in log order, on every member
     and after a reopen."""
     from ra_tpu_torch.models import JitKvMachine
-    mods = kernel_modules()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    mods = kernel_modules(zero=True)
     t0 = time.perf_counter()
     payload = bytes(CLASSIC_DATA_SIZE)
     row, states, recovered, _log = classic_drive(
@@ -4323,6 +4334,148 @@ def phase_classic_path(dev, card: str) -> dict:
         emit({"phase": "classic_path_note",
               "launches_not_zero": launches})
     emit({"phase": "classic_path", "seconds": time.perf_counter() - t0,
+          "host_launches": launches})
+    return launches
+
+
+# -- the placement failover tier: placement_parity and placement_path -------
+
+#: the reference test's failover size (tests/test_placement.py)
+PLACEMENT_SMALL = dict(conns=4, sessions_per_conn=2, lanes=8, waves=4,
+                       wave_ops=200, kill_wave=2)
+
+
+def failover_checked(phase: str, **kw) -> dict:
+    """``run_failover_soak`` (the soak's own oracle raises); the row's
+    exactly-once counts and the failover's shape held here too."""
+    from ra_tpu_torch.placement import run_failover_soak
+    row = run_failover_soak(0, **kw)
+    want = {"failover_lost_acked": 0, "failover_double_applied": 0,
+            "downs": 1, "rehomed_sessions": kw["conns"] *
+            kw["sessions_per_conn"]}
+    got = {**{k: row[k] for k in want if k in row},
+           "downs": row["detector"]["downs"]}
+    if got != want or row["migrations"] < 1:
+        raise AssertionError(f"{phase}: {got} (want {want}), "
+                             f"migrations {row['migrations']}")
+    return row
+
+
+def phase_placement_parity(dev, state_to_numpy) -> dict:
+    """The failover soak at the reference test's size on the card and on
+    the CPU; the adopted engine's recovered state on the card against
+    open_engine's recovery of a copy of the victim's directory on the
+    CPU; then the card run with WAL disk faults."""
+    from ra_tpu_torch.engine.durable import open_engine
+    from ra_tpu_torch.placement import host as host_mod
+    from ra_tpu_torch.wire import DedupCounterMachine
+    mods = kernel_modules(zero=True)
+    t0 = time.perf_counter()
+    root = WAL_ROOT / "placement_parity"
+    adopt, seen = host_mod.LaneEngineHost.adopt, []
+
+    def adopt_and_keep(host, victim, victim_dir, **kw):
+        # the kill-9'd directory as the survivor finds it, and the state
+        # its recovery on the host's device comes to
+        copy = root / f"victim_{len(seen)}"
+        shutil.copytree(victim_dir, copy)
+        lst = adopt(host, victim, victim_dir, **kw)
+        seen.append((copy, state_to_numpy(host.adopted_engine(victim).state)))
+        return lst
+    rows = {}
+    host_mod.LaneEngineHost.adopt = adopt_and_keep
+    try:
+        for name, device, kw in (("card", dev, {}), ("cpu", "cpu", {}),
+                                 ("card_disk_faults", dev,
+                                  {"disk_faults": True})):
+            rows[name] = failover_checked(
+                "placement_parity", data_dir=str(root / name), device=device,
+                **PLACEMENT_SMALL, **kw)
+    finally:
+        host_mod.LaneEngineHost.adopt = adopt
+    keys = ("failover_lost_acked", "failover_double_applied", "migrations",
+            "rehomed_sessions", "conns", "sessions", "lanes")
+    if {k: rows["card"][k] for k in keys} != \
+            {k: rows["cpu"][k] for k in keys}:
+        raise AssertionError("placement_parity: card and CPU rows differ")
+    slots = 4 * max(1, 8 // PLACEMENT_SMALL["lanes"]) + 64
+    compared = [seen[0], seen[2]]       # the two card runs' adoptions
+    for copy, card_state in compared:
+        eng = open_engine(DedupCounterMachine(slots=slots), str(copy),
+                          PLACEMENT_SMALL["lanes"], wal_shards=2,
+                          ring_capacity=512, max_step_cmds=16, device="cpu")
+        try:
+            cpu_state = state_to_numpy(eng.state)
+        finally:
+            eng.close()
+        bad = [k for k in cpu_state
+               if not np.array_equal(cpu_state[k], card_state[k])
+               or cpu_state[k].dtype != card_state[k].dtype]
+        if bad or cpu_state.keys() != card_state.keys():
+            raise AssertionError(f"placement_parity: the adopted state on "
+                                 f"the card differs from the CPU's "
+                                 f"recovery in {bad[:4]}")
+    shutil.rmtree(root, ignore_errors=True)
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    if launches["commit_phase"] == 0:
+        raise AssertionError(f"placement_parity: launches {launches}")
+    emit({"phase": "placement_parity", "seconds": time.perf_counter() - t0,
+          "size": PLACEMENT_SMALL, "adopted_states_equal": len(compared),
+          "rows": {name: {k: row[k] for k in keys + (
+              "failover_recovery_s", "detector", "disk_faults_injected")}
+              for name, row in rows.items()},
+          "host_launches": launches})
+    return launches
+
+
+def phase_placement_path(dev, card: str, waves: int = 8,
+                         conns: int = 10_000, kill_wave: int = 3) -> dict:
+    """Two LaneEngineHosts of 1,024 lanes x 3 on the card, 10,000
+    loopback connections x 2 sessions each, 8 waves of 50,000 ops a host,
+    engine A kill-9'd at wave 3: the oracle, recovery seconds, counters,
+    client rates around the kill and the idle share of the last two
+    waves."""
+    from ra_tpu_torch.metrics import PLACEMENT_FIELDS
+    mods = kernel_modules(zero=True)
+    data = WAL_ROOT / "placement"
+    shutil.rmtree(data, ignore_errors=True)
+    wt = WaveTrace(waves - 2, waves)
+    t0 = time.perf_counter()
+    row = failover_checked(
+        "placement_path", conns=conns, sessions_per_conn=2, lanes=1024,
+        waves=waves, wave_ops=50_000, kill_wave=kill_wave, wal_shards=2,
+        data_dir=str(data), device=dev, on_wave=wt)
+    seconds = time.perf_counter() - t0
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    shutil.rmtree(data, ignore_errors=True)
+    if launches["commit_phase"] == 0 or launches["slot_fold"] or \
+            launches["fifo_fold"] or launches["evaluate_quorum"]:
+        raise AssertionError(f"placement_path: launches {launches}")
+    # (seconds, acked ops) as each wave starts: the rates leave out wave
+    # 0 (the first acks) and the traced waves (the profiler's start)
+    marks = row["wave_marks"]
+
+    def rate(a: int, b: int) -> float:
+        return (marks[b][1] - marks[a][1]) / (marks[b][0] - marks[a][0])
+    traced_s, busy_s, idle = wt.busy()
+    reduced = {k: [full, v] for k, full, v in (
+        ("conns", 10_000, conns), ("waves", 8, waves)) if full != v}
+    emit({"phase": "placement_path", "nvidia_smi": card,
+          "seconds": seconds, "reduced": reduced,
+          "failover_recovery_s": row["failover_recovery_s"],
+          "detector": row["detector"],
+          "placement_fields": {k: row["placement_counters"][k]
+                               for k in PLACEMENT_FIELDS},
+          "client_ops_per_s_before_kill": rate(1, kill_wave),
+          "client_ops_per_s_after_kill": rate(kill_wave + 1, waves - 2),
+          "wave_marks": marks, "kill_s": row["kill_s"],
+          "traced_waves": [waves - 2, waves], "traced_waves_s": traced_s,
+          "traced_waves_device_busy_s": busy_s,
+          "traced_waves_device_idle_share": idle,
+          **{k: row[k] for k in (
+              "failover_lost_acked", "failover_double_applied",
+              "migrations", "rehomed_sessions", "conns", "sessions",
+              "lanes", "ops", "elapsed_s", "wal_shards", "host")},
           "host_launches": launches})
     return launches
 
@@ -4405,6 +4558,9 @@ def main() -> int:
         mesh_launches = phase_mesh_path(dev, volatile, state_to_numpy)
         classic_parity_launches = phase_classic_parity(dev)
         classic_path_launches = phase_classic_path(dev, card)
+        placement_parity_launches = phase_placement_parity(dev,
+                                                           state_to_numpy)
+        placement_path_launches = phase_placement_path(dev, card)
     finally:
         shutil.rmtree(WAL_ROOT, ignore_errors=True)
     # launches of each kernel on each path, each counted from 0 just
@@ -4431,6 +4587,8 @@ def main() -> int:
         k["launches_mesh_path"] = mesh_launches[name]
         k["launches_classic_parity"] = classic_parity_launches[name]
         k["launches_classic_path"] = classic_path_launches[name]
+        k["launches_placement_parity"] = placement_parity_launches[name]
+        k["launches_placement_path"] = placement_path_launches[name]
         if name in folds:
             k["launches"] = folds[name]["host"][name]
             k["executions_profiled"] = folds[name]["profiled_executions"]

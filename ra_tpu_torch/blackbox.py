@@ -4,7 +4,7 @@ The port's own copy of ``ra_tpu/blackbox.py`` (the port imports nothing
 of ``ra_tpu``), with the registry cut to the planes the port has: the
 classic plane's command lifecycle and reliable RPC, the WAL shards, the
 durable engine's bridge, the storage fault plan, the supervisors, the
-ingress and wire planes, the autotuner and the device plane (whose four
+ingress and wire planes, the placement failover tier, the autotuner and the device plane (whose four
 events keep the reference's texts).
 
 * :class:`FlightRecorder` -- an always-on, bounded, per-subsystem ring
@@ -121,6 +121,34 @@ EVENT_REGISTRY = {
                  "into a wire shed episode)",
     "wire.error": "protocol error (bad hello/version/record) closed "
                   "a connection",
+    # -- placement failover (placement/; `trace` = migrated-cmd ctx) ---
+    "detector.suspect": "failure detector escalated a peer/engine to "
+                        "suspect (silent beyond suspect_after; age = "
+                        "seconds since last heard)",
+    "detector.down": "failure detector confirmed a peer/engine down "
+                     "(silent beyond down_after AND suspect for the "
+                     "full hysteresis window; age rides along)",
+    "placement.refuse": "a lane range's old home refused/was "
+                        "unreachable for a session (the client-visible "
+                        "start of a failover incident)",
+    "placement.migrate": "control plane committed a lane-range "
+                         "re-placement through the placement table "
+                         "(rid, victim -> survivor, new generation)",
+    "placement.adopt": "survivor restored a victim engine's durable "
+                       "lane state (checkpoint + WAL-shard merge, "
+                       "gated at the fsynced watermark)",
+    "placement.giveup": "a bounded placement retry loop exhausted its "
+                        "deadline/attempts and gave up (no silent "
+                        "infinite retry in the control plane)",
+    "placement.adopt_rpc": "a survivor host committed an adoption "
+                           "requested over the reliable control-plane "
+                           "RPC tier (host_adopt: retried, "
+                           "deduplicated, deadline-bounded)",
+    "placement.stale_probe": "supervisor discarded a probe reply from "
+                             "a superseded engine generation (a stale "
+                             "reply must not reset the new incumbent's "
+                             "suspect streak)",
+    "nemesis.op": "chaos schedule executed one op",
     "placement.rehome": "sessions re-bound to the new home: epoch "
                         "bump, dedup slots claimed, ack watermarks "
                         "re-seeded",

@@ -1812,6 +1812,7 @@ class RaServer:
                                  suppress, collect_notify)
             i = j
         self.commit_latency = time.monotonic() - t0
+        self.log.note_applied(self.last_applied)
         if notifys and not suppress:
             for to_pid, corrs in notifys.items():
                 effects.append(Notify(to_pid, tuple(corrs)))

@@ -65,6 +65,16 @@ MAX_CHECKPOINTS = 10  # ra.hrl:234
 from ..codec import decode_command, encode_command  # noqa: E402  (re-export)
 
 
+def _has_handle(entry: Entry) -> bool:
+    """Whether an entry's command carries a process-local reply or
+    notification handle (a future or a callable), which its durable image
+    drops (``codec._handle``)."""
+    cmd = entry.command
+    return any(h is not None and not isinstance(h, (str, int, tuple))
+               for h in (getattr(cmd, "from_", None),
+                         getattr(cmd, "notify_to", None)))
+
+
 def _write_snapshot_file(path: str, meta: SnapshotMeta, data: bytes) -> None:
     """Pending-dir discipline: the container is written+fsynced to a
     ``.partial`` sibling and only then renamed into the slot, so a torn
@@ -208,6 +218,11 @@ class DurableLog:
         # the classic plane)
         self._memtable: dict[int, Entry] = {}
         self._mem_bytes: dict[int, bytes] = {}  # idx -> payload (for flush)
+        #: the server's apply watermark (note_applied), and the memtable
+        #: entries a segment flush kept because the apply has yet to read
+        #: their process-local reply handle (idx -> the kept Entry)
+        self._applied = 0
+        self._kept: dict[int, Entry] = {}
         # creation order, newest LAST — load-bearing: _segment_read scans
         # reversed so a newer segment's entries supersede older ones where
         # they overlap, and _current_segment appends to [-1]
@@ -995,12 +1010,36 @@ class DurableLog:
                 # ra swaps memtable for segment refs (:534-574): drop both
                 # copies; reads now resolve via the segment files.  The
                 # skipped duplicates prune too — they are ALREADY durable
-                # in a segment, which is what the prune asserts.
+                # in a segment, which is what the prune asserts.  An entry
+                # above the apply watermark that carries a reply handle
+                # stays until note_applied passes it: the segment's codec
+                # image drops the handle, and an apply reading it back
+                # there would never answer the command (a departure from
+                # the reference, which prunes it and loses the reply)
                 for idx, _, _ in items:
+                    ent = self._memtable.get(idx)
+                    if idx > self._applied and ent is not None and \
+                            _has_handle(ent):
+                        self._kept[idx] = ent
+                        continue
                     self._mem_bytes.pop(idx, None)
                     self._memtable.pop(idx, None)
                 return (len(write_items), nbytes,
                         self._seg_seq - seq_before)
+
+    def note_applied(self, idx: int) -> None:
+        """The server applied through ``idx``: prune what a segment flush
+        kept for the apply (entries still the kept object; an overwrite
+        or truncation since has replaced or dropped the rest)."""
+        self._applied = idx     # a flush racing this keeps more, never less
+        if not self._kept:
+            return
+        with self._lock:
+            for i in [i for i in self._kept if i <= idx]:
+                ent = self._kept.pop(i)
+                if self._memtable.get(i) is ent:
+                    self._memtable.pop(i)
+                    self._mem_bytes.pop(i, None)
 
     def _current_segment(self) -> SegmentFile:
         with self._lock:

@@ -80,6 +80,9 @@ class MemoryLog:
     def next_index(self) -> int:
         return self._last_index + 1
 
+    def note_applied(self, idx: int) -> None:
+        """The server's apply watermark: nothing to release in memory."""
+
     # -- writes -------------------------------------------------------------
 
     def append(self, entry: Entry) -> None:

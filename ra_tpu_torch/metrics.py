@@ -5,8 +5,9 @@ nothing of ``ra_tpu``), with the classic plane's ``Counters`` registry
 and ``Leaderboard``; the equality of every tuple with the reference is
 pinned by ``tests/test_torch_engine.py``, ``tests/test_torch_wal.py``,
 ``tests/test_torch_ingress.py`` and ``tests/test_torch_classic_core.py``.
-``PLACEMENT_FIELDS`` is registered for the registry's parity only: the
-placement tier is not ported yet.
+``PLACEMENT_FIELDS`` are the counters of the placement tier's
+``EngineSupervisor`` (``placement/supervisor.py``) and the wire
+listener's ``rehome_hints``.
 """
 from __future__ import annotations
 

@@ -21,9 +21,11 @@ wire soak registers a lossy plan for the length of its run, as the
 reference does.
 
 Ported with the plan: its specs, the registry, ``quiet``,
-``unregister``, ``partition``/``heal`` and ``overview``.  The per-frame
-decision (``decide``) belongs to the TCP transport, which is not ported
-yet: no transport of the port consults a plan.
+``unregister``, ``partition``/``heal``, ``overview`` and the per-frame
+decision (``decide``, ``is_partitioned``, ``recv_peer``) on the same
+seeded per-(peer, frame class, direction) streams as the reference's.
+The placement supervisor consults ``decide`` for its probes; the TCP
+transport, the other consumer, is not ported yet.
 """
 from __future__ import annotations
 
@@ -348,6 +350,10 @@ class FaultDecision:
     reorder: bool = False
 
 
+_DELIVER = FaultDecision()
+_DROP = FaultDecision(action="drop")
+
+
 #: live FaultPlans (weak: a dropped plan leaves the bundle) — the
 #: "active FaultPlan state" source every post-mortem bundle embeds
 _LIVE_PLANS: "weakref.WeakSet" = weakref.WeakSet()
@@ -403,12 +409,20 @@ class FaultPlan:
         self.by_class = dict(by_class or {})
         self.by_peer = dict(by_peer or {})
         self.by_peer_class = dict(by_peer_class or {})
+        self._rngs: dict = {}
+        self._spent: dict = {}       # stream key -> faults injected
+        self._lock = threading.Lock()
         self.partitioned: set = set()
         #: injected-fault counters by kind (drop/delay/duplicate/
         #: reorder/partition), for the transport that consults the plan
         self.counters: dict = {}
         self.domains = dict(domains or {})
         self._local_domain = self.domains.get("local", "")
+        #: peer name -> domain name (compiled from domains["members"])
+        self._domain_of: dict = {
+            peer: dname
+            for dname, peers in self.domains.get("members", {}).items()
+            for peer in peers}
         #: (src, dst) -> FaultSpec (compiled from domains["matrix"])
         self._matrix: dict = {
             tuple(pair): self._compile_domain_spec(v)
@@ -479,6 +493,119 @@ class FaultPlan:
             self.partitioned.clear()
         else:
             self.partitioned.discard(peer)
+
+    # -- decision -----------------------------------------------------------
+
+    def _spec_for(self, peer: str, frame_class: str) -> FaultSpec:
+        return self._resolve(peer, frame_class, "send")[0]
+
+    def _domain_pair(self, peer: str, direction: str):
+        """The (src, dst) matrix cell a frame to/from ``peer`` crosses,
+        or None when the peer has no domain or no cell applies.  An
+        exact key wins; the reversed pair covers the symmetric-RTT
+        common case."""
+        dom = self._domain_of.get(peer)
+        if dom is None or not self._matrix:
+            return None
+        pair = (self._local_domain, dom) if direction == "send" \
+            else (dom, self._local_domain)
+        if pair in self._matrix:
+            return pair
+        rev = (pair[1], pair[0])
+        return rev if rev in self._matrix else None
+
+    def _resolve(self, peer: str, frame_class: str, direction: str):
+        """(spec, domain_pair): domain_pair is the matrix cell the spec
+        came from, None for explicitly keyed specs (which rank above the
+        matrix) and the default (which ranks below)."""
+        if (peer, frame_class) in self.by_peer_class:
+            return self.by_peer_class[(peer, frame_class)], None
+        if peer in self.by_peer:
+            return self.by_peer[peer], None
+        if frame_class in self.by_class:
+            return self.by_class[frame_class], None
+        pair = self._domain_pair(peer, direction)
+        if pair is not None:
+            return self._matrix[pair], pair
+        return self.default, None
+
+    def _note(self, kind: str, peer: str = "",
+              frame_class: str = "") -> None:
+        self.counters[kind] = self.counters.get(kind, 0) + 1
+        record("net.fault", kind=kind, peer=peer, cls=frame_class)
+
+    def is_partitioned(self, peer: str) -> bool:
+        if peer in self.partitioned:
+            self._note("partition", peer)
+            return True
+        return False
+
+    def recv_peer(self, names) -> str:
+        """Fault-stream key for an inbound connection whose hello named
+        ``names``: the first name the plan explicitly targets (partition
+        or per-peer spec), else the first name."""
+        for n in names:
+            if n in self.partitioned or n in self.by_peer or \
+                    any(k[0] == n for k in self.by_peer_class):
+                return n
+        return names[0] if names else "?"
+
+    #: every fault kind a call site may honor; paths that can only drop
+    #: pass honor={"drop"}, so an unhonorable decision neither spends the
+    #: spec's limit nor counts as injected
+    ALL_FAULTS = frozenset({"drop", "delay", "duplicate", "reorder"})
+
+    def decide(self, peer: str, frame_class: str,
+               direction: str = "send",
+               honor: frozenset = ALL_FAULTS) -> FaultDecision:
+        """The fault for one frame, drawn from the seeded stream of
+        ``(peer, frame_class, direction)``: one stream's draws never
+        perturb another's, so a schedule replays whatever the thread
+        interleaving."""
+        if peer in self.partitioned:
+            self._note("partition", peer, frame_class)
+            return _DROP
+        spec, domain_pair = self._resolve(peer, frame_class, direction)
+        if spec.drop == spec.delay == spec.duplicate == spec.reorder == 0:
+            return _DELIVER
+        key = (peer, frame_class, direction)
+        with self._lock:
+            rng = self._rngs.get(key)
+            if rng is None:
+                rng = self._rngs[key] = random.Random(
+                    f"{self.seed}:{peer}:{frame_class}:{direction}")
+            if spec.limit and self._spent.get(key, 0) >= spec.limit:
+                return _DELIVER
+            roll = rng.random()
+            edge = 0.0
+            for kind, prob in (("drop", spec.drop),
+                               ("delay", spec.delay),
+                               ("duplicate", spec.duplicate),
+                               ("reorder", spec.reorder)):
+                edge += prob
+                if roll >= edge:
+                    continue
+                if kind not in honor:
+                    return _DELIVER
+                self._spent[key] = self._spent.get(key, 0) + 1
+                self._note(kind, peer, frame_class)
+                if kind == "drop":
+                    return _DROP
+                if kind == "delay":
+                    lo, hi = spec.delay_ms
+                    delay_s = rng.uniform(lo, hi) / 1000.0
+                    if domain_pair is not None:
+                        # a matrix stretch is geography, not chaos:
+                        # timelines name the domain crossing
+                        record("rpc.domain_delay", peer=peer,
+                               cls=frame_class, src=domain_pair[0],
+                               dst=domain_pair[1],
+                               delay_ms=round(delay_s * 1000.0, 3))
+                    return FaultDecision(delay_s=delay_s)
+                if kind == "duplicate":
+                    return FaultDecision(duplicate=True)
+                return FaultDecision(reorder=True)
+        return _DELIVER
 
     def overview(self) -> dict:
         out = {"seed": self.seed,

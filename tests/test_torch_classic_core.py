@@ -477,8 +477,9 @@ def test_seeded_images_cross_between_packages():
 
 def test_reference_fallback_pickles_read_through_convert():
     """A reference FALLBACK record (a membership command) decodes in the
-    port as the port's class; a reference class the port lacks, and a
-    JAX array, are refused by name."""
+    port as the port's class, as does a ported reference class; a
+    reference class the port lacks, and a JAX array, are refused by
+    name."""
     sid = ref_types.ServerId("s4", "node4")
     img = ref_codec.encode_command(ref_types.JoinCommand(sid))
     assert img[0] == ref_codec.TAG_FALLBACK
@@ -487,8 +488,13 @@ def test_reference_fallback_pickles_read_through_convert():
     assert norm(got) == norm(ref_types.JoinCommand(sid))
 
     from ra_tpu.placement.table import PlacementTableMachine
-    with pytest.raises(pickle.UnpicklingError, match="ra_tpu.placement"):
-        convert.loads(pickle.dumps(PlacementTableMachine))
+    from ra_tpu.transport.tcp import TcpRouter
+    from ra_tpu_torch.placement import table as port_table
+    with pytest.raises(pickle.UnpicklingError, match="ra_tpu.transport.tcp"):
+        convert.loads(pickle.dumps(TcpRouter))
+    # a ported reference class reads as the port's
+    assert convert.loads(pickle.dumps(PlacementTableMachine)) is \
+        port_table.PlacementTableMachine
     with pytest.raises(pickle.UnpicklingError, match="JAX"):
         convert.loads(pickle.dumps({"mac": jnp.zeros((3,), jnp.int32)}))
     # the port's own pickles read back unchanged

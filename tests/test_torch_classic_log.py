@@ -460,3 +460,64 @@ def test_sync_after_notify_fault_rewrites_confirmed_suffix(tmp_path):
     assert poisoned >= 1 and retries == 0 and hi == 20
     assert sorted(table) == list(range(1, 21)) and \
         table[20][1] == b"v-20"
+
+
+# -- a reply handle survives a segment flush (ROADMAP Queue 3 item 11) --------
+
+def test_flush_keeps_unapplied_reply_handles(tmp_path):
+    """Local commands with reply handles, confirmed, then flushed to
+    segments past the apply watermark before the apply reads them: the
+    port hands every unapplied entry back with its handle, while the
+    reference reads it back from the segment with ``from_`` None, the
+    lost reply (a departure kept on purpose).  Applied entries read back
+    from the segment in both, and the segments are equal."""
+    from concurrent.futures import Future
+    vals = [int(v) for v in np.random.default_rng(12).integers(-99, 99, 16)]
+    applied, up_to = 5, 12
+    sides = {"ref": LogSide(REF, str(tmp_path / "ref")),
+             "port": LogSide(PORT, str(tmp_path / "port"))}
+    try:
+        kept = {}
+        for name, side in sides.items():
+            t = side.pkg["types"]
+            hs = [Future() for _ in vals]
+            for i, (v, h) in enumerate(zip(vals, hs), 1):
+                side.log.append(t.Entry(i, 1, t.UserCommand(v, from_=h)))
+            side.drain()
+            if name == "port":
+                side.log.note_applied(applied)
+            side.log.flush_mem_to_segments(up_to)
+            kept[name] = [side.log.fetch(i).command.from_ is h
+                          for i, h in enumerate(hs, 1)]
+        n = len(vals)
+        assert kept["port"] == [False] * applied + [True] * (n - applied)
+        assert kept["ref"] == [False] * up_to + [True] * (n - up_to)
+        assert sides["port"].view() == sides["ref"].view()
+        # the apply passes the kept entries: the port prunes them
+        sides["port"].log.note_applied(up_to)
+        assert [sides["port"].log.fetch(i).command.from_ is None
+                for i in range(1, n + 1)] == \
+            [True] * up_to + [False] * (n - up_to)
+        assert sides["port"].view() == sides["ref"].view()
+    finally:
+        for side in sides.values():
+            side.close()
+
+
+def test_every_put_answers_across_wal_rollovers(tmp_path):
+    """Three nodes, each with a ``RaSystem`` rolling its WAL every 24
+    entries, 200 KV puts through ``process_command``: every put answers
+    within 3 s and every member applies them all.  The port only: the
+    reference loses a reply at a timing-dependent put."""
+    from test_torch_classic_card import PORT as CARD, Deployment
+    pkg = dict(CARD, system=lambda d: RaSystem(d, wal_max_entries=24))
+    dep = Deployment(pkg, str(tmp_path), KvMachine)
+    try:
+        for i in range(200):
+            res = ra_tpu_torch.process_command(
+                dep.leader, ("put", f"k{i % 7}", i), router=dep.router,
+                timeout=3.0)
+            assert not isinstance(res, port_types.ErrorResult), (i, res)
+        assert dep.settle() >= 200
+    finally:
+        dep.close()

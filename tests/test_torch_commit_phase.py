@@ -14,6 +14,7 @@ import torch
 from ra_tpu.ops import quorum as ref
 from ra_tpu.ops.pallas_quorum import evaluate_quorum_pallas
 from ra_tpu_torch.ops import commit_phase as cpm
+from test_torch_classic_card import cuda_device  # noqa: F401
 
 SHAPES = [(10_000, 5), (513, 2), (1024, 7), (4099, 15), (2048, 16)]
 NAMES = [name for name, _dtype, _kind in cpm.INPUTS]
@@ -158,14 +159,6 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="expected all"):
         cpm.commit_phase_dispatch(*with_arg(12, args[12].to("meta")), **kw)
     assert cpm.LAUNCHES == before
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
-                    "False)")
-    return torch.device("cuda")
 
 
 @pytest.mark.cuda

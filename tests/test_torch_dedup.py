@@ -18,23 +18,14 @@ import torch
 from ra_tpu.core.machine import ApplyMeta
 from ra_tpu.engine import lockstep as ref_lockstep
 from ra_tpu.wire.dedup import DedupCounterMachine as RefDedup
-from ra_tpu_torch.core.tree import tree_leaves
 from ra_tpu_torch.engine import lockstep as port_lockstep
 from ra_tpu_torch.wire.dedup import DedupCounterMachine
+from test_torch_machines import assert_tree_equal
 from test_torch_engine import assert_same, host_verbs
 
 
 def to_port(tree):
     return jax.tree.map(lambda x: torch.from_numpy(np.array(x)), tree)
-
-
-def assert_tree_equal(got, want, what):
-    gl = [x.numpy() for x in tree_leaves(got)]
-    wl = [np.asarray(x) for x in jax.tree.leaves(want)]
-    assert len(gl) == len(wl), what
-    for j, (g, w) in enumerate(zip(gl, wl)):
-        assert g.dtype == w.dtype and g.shape == w.shape, (what, j)
-        assert np.array_equal(g, w), (what, j)
 
 
 def _window(rng, lead, a, slots, delta=None):

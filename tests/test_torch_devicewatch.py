@@ -23,6 +23,7 @@ import torch
 
 from ra_tpu import metrics as ref_metrics
 from ra_tpu import devicewatch as ref_devicewatch
+import ra_tpu.engine.lockstep as ref_lockstep
 from ra_tpu.engine import DispatchAheadDriver as RefDriver
 from ra_tpu.engine import LockstepEngine as RefEngine
 from ra_tpu.engine import open_engine as ref_open_engine
@@ -44,6 +45,7 @@ from ra_tpu_torch.models import CounterMachine
 from test_torch_durable import assert_records_equal
 from test_torch_engine import assert_same
 from test_torch_slo_autotune import Clock
+from test_torch_classic_card import cuda_device  # noqa: F401
 
 N, P, KC = 16, 3, 4
 
@@ -61,14 +63,6 @@ def compile_snap():
 def site_delta(watch, site, before):
     now = watch.sites[site]
     return {k: now[k] - before[k] for k in before}
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
-                    "False)")
-    return torch.device("cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -264,11 +258,16 @@ def superstep_args(k, lanes=6, cmds=3):
             torch.ones((k, lanes, cmds, 1), dtype=torch.int32))
 
 
-def test_shape_drift_recapture_is_detected_and_attributed(eager_graphs):
+def test_shape_drift_recapture_is_detected_and_attributed(eager_graphs,
+                                                          monkeypatch):
     """A K = 8 -> K = 4 block at one site is a re-capture: counted as a
     recompile, the drifting leaf named as the reference's sentinel names
     it (the reference's own drift string, sharding aside), and the
-    registered ``device.recompile`` event recorded."""
+    registered ``device.recompile`` event recorded.  The reference runs on
+    private jit caches: its shared ones must stay as the reference's own
+    drift test expects them (that config's K = 4 not yet compiled)."""
+    monkeypatch.setattr(ref_lockstep, "_STEP_JIT_CACHE", {})
+    monkeypatch.setattr(ref_lockstep, "_SUMMARY_JIT_CACHE", {})
     ref = RefEngine(RefCounter(), 6, 3, ring_capacity=32, max_step_cmds=3,
                     donate=False)
     nb8 = np.full((8, 6), 2, np.int32)

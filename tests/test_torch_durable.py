@@ -45,6 +45,7 @@ from ra_tpu_torch.log.wal import WalDown
 from ra_tpu_torch.metrics import ENGINE_WAL_FIELDS
 from ra_tpu_torch.models import CounterMachine
 from ra_tpu_torch.ops import commit_phase
+from test_torch_classic_card import cuda_device  # noqa: F401
 from test_torch_engine import assert_same_arrays, ref_arrays
 
 N, P, K = 16, 3, 8
@@ -659,14 +660,6 @@ def test_kill9_recovers_all_reported_commits(tmp_path):
 
 
 # -- on the card -------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
-                    "False)")
-    return torch.device("cuda")
-
 
 def card_engine(path, dev, **kw):
     return open_engine(CounterMachine(), str(path), N, P, device=dev,

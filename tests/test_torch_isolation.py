@@ -1,6 +1,6 @@
 """The port stands alone: no module of ra_tpu_torch, and not
-chip_smoke.py, imports jax or anything of ra_tpu, and importing the
-package loads neither."""
+chip_smoke.py, imports jax, anything of ra_tpu or the test suite
+(``tests.*``), and importing the package loads none of them."""
 import ast
 import os
 import subprocess
@@ -45,7 +45,10 @@ def test_port_files_found():
                  ("machines.py",), ("machine_ets.py",), ("node.py",),
                  ("directory.py",), ("system.py",), ("api.py",),
                  ("models", "kv.py"), ("models", "fifo.py"),
-                 ("models", "queue.py")):
+                 ("models", "queue.py"), ("placement", "table.py"),
+                 ("placement", "supervisor.py"), ("placement", "host.py"),
+                 ("placement", "fabric.py"), ("placement", "soak.py"),
+                 ("placement", "__init__.py")):
         assert any(f.endswith(os.path.join(*tail)) for f in files), tail
 
 
@@ -53,7 +56,7 @@ def test_port_files_found():
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_or_ra_tpu_import(path):
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "ra_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "ra_tpu", "tests")]
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
@@ -69,14 +72,15 @@ def test_importing_the_port_loads_no_jax():
             "ra_tpu_torch.log.durable, ra_tpu_torch.node, "
             "ra_tpu_torch.system, ra_tpu_torch.api, ra_tpu_torch.machines, "
             "ra_tpu_torch.machine_ets, ra_tpu_torch.directory, "
-            "ra_tpu_torch.codec, ra_tpu_torch.transport.rpc\n"
+            "ra_tpu_torch.codec, ra_tpu_torch.transport.rpc, "
+            "ra_tpu_torch.placement, ra_tpu_torch.utils\n"
             "ra_tpu_torch.LockstepEngine, ra_tpu_torch.open_engine\n"
             "ra_tpu_torch.RaNode, ra_tpu_torch.RaSystem, ra_tpu_torch.aux, "
             "ra_tpu_torch.start_cluster, ra_tpu_torch.KvMachine\n"
             "from ra_tpu_torch import native\n"
             "assert not native.IO._loaded   # no g++ at import\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'ra_tpu'))\n"
+            "('jax', 'jaxlib', 'ra_tpu', 'tests', 'nemesis'))\n"
             "assert not bad, bad\n"
             "assert 'ra_tpu_torch.engine.lockstep' in sys.modules\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -35,6 +35,7 @@ from ra_tpu_torch.models import jit_fifo
 from ra_tpu_torch.ops import exact, fifo_fold, slot_fold
 
 from chip_smoke import fold_operands
+from test_torch_classic_card import cuda_device  # noqa: F401
 
 N, P = 6, 3
 CPU = torch.device("cpu")
@@ -513,14 +514,6 @@ def test_cuda_engine_refuses_a_fifo_its_kernel_cannot_fold(monkeypatch):
 
 
 # -- the fold kernels on the card ---------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
-                    "False)")
-    return torch.device("cuda")
-
 
 def _on(tree, dev):
     return jax.tree.map(lambda x: x.to(dev), tree)

@@ -13,6 +13,7 @@ from ra_tpu.ops import quorum as ref
 from ra_tpu.ops.pallas_quorum import evaluate_quorum_pallas
 from ra_tpu_torch.ops import pallas_quorum as pq
 from ra_tpu_torch.ops import quorum as port
+from test_torch_classic_card import cuda_device  # noqa: F401
 
 
 def _same(got, want):
@@ -101,14 +102,6 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="shape"):
         pq.evaluate_quorum_cuda(commit[:39], match, voter, tstart)
     assert pq.LAUNCHES == before
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
-                    "False)")
-    return torch.device("cuda")
 
 
 @pytest.mark.cuda

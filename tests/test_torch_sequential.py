@@ -41,6 +41,7 @@ from ra_tpu_torch.models import CounterMachine, JitFifoMachine, \
 from ra_tpu_torch.ops import fifo_fold, slot_fold
 from test_torch_engine import assert_same, assert_same_arrays, host_verbs, \
     ref_arrays
+from test_torch_classic_card import cuda_device  # noqa: F401
 
 
 class RefSequential(RefCounter):
@@ -377,14 +378,6 @@ def test_checkpoint_restores_across_packages(tmp_path, name):
 
 
 # -- on the card ---------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
-                    "False)")
-    return torch.device("cuda")
-
 
 def _fifo_blocks(rng, k, n):
     """Consumer-mix blocks: (enqueue, enqueue, dequeue-unsettled, settle)

@@ -28,7 +28,6 @@ import torch
 from ra_tpu.engine import lockstep as ref_lockstep
 from ra_tpu.models import StreamMachine as RefStream
 from ra_tpu.models.stream import query_bounds as ref_query_bounds
-from ra_tpu_torch.core.tree import tree_leaves
 from ra_tpu_torch.engine import lockstep as port_lockstep
 from ra_tpu_torch.models import StreamMachine
 from ra_tpu_torch.models.stream import query_bounds
@@ -36,8 +35,10 @@ from ra_tpu_torch.ops import slot_fold
 from chip_smoke import STREAM_EDGE as EDGE
 from chip_smoke import stream_commands as stream_cmds
 from chip_smoke import stream_state
+from test_torch_machines import assert_tree_equal
 from test_torch_engine import assert_same, host_verbs, \
     positional_archives
+from test_torch_classic_card import cuda_device  # noqa: F401
 
 CPU = torch.device("cpu")
 N, P = 6, 3
@@ -46,16 +47,6 @@ N, P = 6, 3
 SHAPES = [(64, 4), (8, 3), (5, 2)]
 def to_port(tree):
     return jax.tree.map(lambda x: torch.from_numpy(np.array(x)), tree)
-
-
-def assert_tree_equal(got, want, what):
-    gl = [x.numpy() for x in tree_leaves(got)]
-    wl = [np.asarray(x) for x in jax.tree.leaves(want)]
-    assert len(gl) == len(wl), what
-    for j, (g, w) in enumerate(zip(gl, wl)):
-        assert g.dtype == w.dtype, (what, j, g.dtype, w.dtype)
-        assert g.shape == w.shape, (what, j, g.shape, w.shape)
-        assert np.array_equal(g, w), (what, j)
 
 
 @pytest.mark.parametrize("Q,G", SHAPES)
@@ -519,14 +510,6 @@ def test_read_oracle_stream():
 
 
 # -- the stream decoder on the card ----------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
-                    "False)")
-    return torch.device("cuda")
-
 
 DECODER_CASES = [(Q, G, n, p, a) for Q, G in SHAPES
                  for n, p, a in [(6, 3, 9), (129, 1, 1), (300, 7, 20),

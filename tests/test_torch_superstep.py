@@ -23,6 +23,7 @@ from ra_tpu_torch.engine.lockstep import step_watermarks
 from ra_tpu_torch.models import CounterMachine
 from ra_tpu_torch.ops import commit_phase
 from test_torch_engine import assert_same, assert_same_arrays
+from test_torch_classic_card import cuda_device  # noqa: F401
 
 N, P, KC = 64, 5, 4
 KW = dict(ring_capacity=64, max_step_cmds=KC, write_delay=1,
@@ -274,14 +275,6 @@ def test_ledger_counts_driver_copies_like_reference():
 
 
 # -- on the card -------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
-                    "False)")
-    return torch.device("cuda")
-
 
 def stacked_steps(eng, n_new, pay, **kw):
     """K eager ``step()`` calls, the aux stacked as superstep stacks it;
