@@ -199,6 +199,29 @@ non-zero (there is no CPU path and no fallback to a plain version):
              card behind the same clients with seeded int32 puts and gets:
              the final state equal to a plain model of the acknowledged
              puts in log order on every member and after a reopen
+  tcp_parity three member processes (spawned: CUDA does not survive
+             fork), each a RaNode over its own RaSystem behind a
+             TcpRouter, their machines' state on the card, against the
+             port in one process on the CPU: a seeded JitKvMachine(16)
+             script of 2,000 commands pipelined in order, every reply,
+             state and applied count equal; a seeded FifoClient script
+             (200 enqueues, dequeues and settles), equal, every message
+             dequeued once in order; then a list machine's leader process
+             killed mid-stream (its launches read just before): 0 acked
+             values lost, 0 applied twice
+  tcp_path   bench_classic.py's phase B on the port: the three member
+             processes (election timeout 800 ms, tick 200 ms), the client
+             router here, 5 clients x 500 in flight, 256-byte payloads,
+             bursts of 64, 10 s, the noop counter: committed cmds/s,
+             applied p50/p99, credit resets, repeated notifications,
+             dropped sends, the leader's classic stats over node_call and
+             the client's RPC counters; then JitKvMachine(64) applied on
+             the card in every member: each member's state equal to a
+             plain model of the committed puts in log order; in both
+             legs every distinct acked command in the committed log
+             once and none twice (every sent command acked once where
+             no leader changed); kernel launches counted in the members
+             too
   placement_parity
              the failover soak at the reference test's size on the card
              and on the CPU (then on the card with WAL disk faults): 0
@@ -223,19 +246,21 @@ stream and the dedup counter.
 then the kernels summary line (launches on every path, each counted from
 0 just before it: main, superstep, durable, fifo, kv, stream, wire, tune,
 reads, mesh_parity, mesh_path, classic_parity, classic_path,
-placement_parity and placement_path;
-"launches" is
-the count on the kernel's own path), the nvidia-smi line, and last
+tcp_parity, tcp_path, placement_parity and placement_path; "launches" is
+the count on the kernel's own path), preceded by the script's whole
+seconds ("total"), then the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import threading
@@ -3845,6 +3870,8 @@ def phase_mesh_path(dev, volatile: dict, state_to_numpy) -> dict:
 #: credit drawn in bursts of 64, 10 s, a release cursor every 100,000
 CLASSIC_DEGREE, CLASSIC_PIPE, CLASSIC_BURST = 5, 500, 64
 CLASSIC_SECONDS, CLASSIC_DATA_SIZE, CLASSIC_RELEASE = 10.0, 256, 100_000
+#: the KV legs' JitKvMachine width
+CLASSIC_KEYS = 64
 
 
 def host_cpu_model() -> str:
@@ -4108,28 +4135,60 @@ def jsonable_state(st):
     return [st[0], st[2]]
 
 
-def noop_bench_machine():
+def kv_bench_cmd():
+    """The KV legs' command maker: per client a seeded stream of int32
+    puts (3 in 4) and gets over CLASSIC_KEYS keys."""
+    rngs = {}
+
+    def make(cid, seq):
+        rng = rngs.setdefault(cid, np.random.default_rng(1000 + cid))
+        k, v, op = (int(x) for x in rng.integers(
+            0, [CLASSIC_KEYS, 2 ** 31 - 1, 4]))
+        return ("put", k, v) if op else ("get", k)
+    return make
+
+
+def kv_model(commands: list) -> list:
+    """The plain KV model: the last put of each key, in log order."""
+    model = [-1] * CLASSIC_KEYS
+    for data in commands:
+        if isinstance(data, tuple) and data[0] == "put":
+            model[data[1]] = data[2]
+    return model
+
+
+def noop_bench_machine(release: int = CLASSIC_RELEASE,
+                       record: bool = False):
     """bench_classic.py's machine on the port: a count of applies, a
-    release cursor every 100,000, and the batched fold."""
+    release cursor every ``release`` (100,000), and the batched fold.
+    With ``record`` the first 8 bytes of every command it applies (phase
+    B's payloads carry their correlation there) are kept in order in
+    ``applied``, outside the state."""
     from ra_tpu_torch.core.machine import Machine
     from ra_tpu_torch.core.types import ReleaseCursor
 
     class NoopBench(Machine):
+        applied = bytearray() if record else None
+
         def init(self, config):
             return 0
 
         def apply(self, meta, command, state):
+            if self.applied is not None:
+                self.applied += command[:8]
             new = state + 1
-            if meta.index % CLASSIC_RELEASE == 0:
+            if meta.index % release == 0:
                 return new, new, [ReleaseCursor(meta.index, new)]
             return new, new
 
         def apply_batch(self, meta, commands, state):
+            if self.applied is not None:
+                self.applied += b"".join(c[:8] for c in commands)
             n = len(commands)
             new = state + n
             replies = list(range(state + 1, new + 1))
             base = meta.index
-            k = ((base + n - 1) // CLASSIC_RELEASE) * CLASSIC_RELEASE
+            k = ((base + n - 1) // release) * release
             if k >= base:
                 return new, replies, [ReleaseCursor(k, state + k - base + 1)]
             return new, replies
@@ -4140,15 +4199,20 @@ def noop_bench_machine():
 class ClassicClient:
     """bench_classic.py's pipelining client: up to ``pipe`` commands in
     flight, credit drawn in bursts, enqueue -> applied latency sampled
-    1 in 16; every acknowledged correlation kept (the once-only check)."""
+    1 in 16; every acknowledged correlation kept (the once-only check).
+    With ``reset_after_s`` (phase B's client) a window starved that long
+    with no acknowledgement refills and counts a credit reset: pipelined
+    casts are fire and forget, so a frame lost to a leader change loses
+    its acks."""
 
-    def __init__(self, cid: int, pipe: int, make_cmd):
+    def __init__(self, cid: int, pipe: int, make_cmd,
+                 reset_after_s: float = None):
         self.cid, self.pipe, self.credit = cid, pipe, pipe
-        self.make_cmd = make_cmd
+        self.make_cmd, self.reset_after_s = make_cmd, reset_after_s
         self.acked: list = []
         self.lats: list = []
         self.inflight: dict = {}
-        self.sent = 0
+        self.sent = self.credit_resets = 0
         self._lock = threading.Lock()
         self._have = threading.Event()
 
@@ -4164,15 +4228,24 @@ class ClassicClient:
         self._have.set()
 
     def run(self, send, stop_evt) -> None:
-        seq = 0
+        seq, starved_since = 0, None
         while not stop_evt.is_set():
             with self._lock:
                 take = min(self.credit, CLASSIC_BURST)
                 self.credit -= take
             if take <= 0:
                 self._have.clear()
-                self._have.wait(0.02)
+                if self._have.wait(0.02) or self.reset_after_s is None:
+                    starved_since = None
+                    continue
+                now = time.perf_counter()
+                starved_since = starved_since or now
+                if now - starved_since > self.reset_after_s:
+                    with self._lock:
+                        self.credit, starved_since = self.pipe, None
+                        self.credit_resets += 1
                 continue
+            starved_since = None
             items = []
             t0 = time.perf_counter()
             with self._lock:
@@ -4186,8 +4259,62 @@ class ClassicClient:
             send(items, self.on_notify)
 
     def idle(self) -> bool:
+        """Nothing in flight (a repeated notification returns its credit
+        twice, so phase B's window can read above ``pipe``)."""
         with self._lock:
-            return self.credit == self.pipe
+            return self.credit >= self.pipe
+
+
+def run_clients(send, make_cmd, name: str,
+                reset_after_s: float = None) -> dict:
+    """CLASSIC_DEGREE clients x CLASSIC_PIPE through ``send`` for
+    CLASSIC_SECONDS, then every acknowledgement awaited; no correlation
+    acknowledged twice.  Phase B's clients (``reset_after_s``) give up on
+    the acks of lost frames after a minute, and count repeated
+    notifications instead of failing on them: a member that becomes
+    leader notifies the entries it applies as leader, so a command
+    committed before a leader change can be notified by more than one
+    member (the reference does the same).  The rate counts the distinct
+    acknowledgements inside the window."""
+    clients = [ClassicClient(i, CLASSIC_PIPE, make_cmd, reset_after_s)
+               for i in range(CLASSIC_DEGREE)]
+    stop = threading.Event()
+    threads = [threading.Thread(target=c.run, args=(send, stop),
+                                daemon=True) for c in clients]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(CLASSIC_SECONDS)
+    stop.set()
+    for t in threads:
+        t.join(timeout=10)
+    acked_in_window = len({corr for c in clients for corr in c.acked})
+    elapsed = time.perf_counter() - t0
+    deadline = time.monotonic() + 60
+    while not all(c.idle() for c in clients):
+        if time.monotonic() > deadline:
+            if reset_after_s is not None:
+                break
+            raise AssertionError(f"{name}: acknowledgements missing: "
+                                 f"{[c.pipe - c.credit for c in clients]}")
+        time.sleep(0.01)
+    acked = [corr for c in clients for corr in c.acked]
+    sent = sum(c.sent for c in clients)
+    distinct = len(set(acked))
+    if reset_after_s is None and not len(acked) == distinct == sent:
+        raise AssertionError(f"{name}: {sent} sent, {len(acked)} acked, "
+                             f"{distinct} distinct")
+    lats = sorted(x for c in clients for x in c.lats)
+    k = len(lats)
+    return {
+        "committed_cmds_per_s": acked_in_window / elapsed,
+        "acked": distinct, "sent": sent, "elapsed_s": elapsed,
+        "repeated_notifications": len(acked) - distinct,
+        "p50_applied_latency_ms": 1e3 * lats[k // 2] if k else -1.0,
+        "p99_applied_latency_ms":
+            1e3 * lats[min(k - 1, int(k * 0.99))] if k else -1.0,
+        "latency_samples": k, "acked_corrs": set(acked),
+        "credit_resets": sum(c.credit_resets for c in clients)}
 
 
 def classic_drive(data_dir: str, dev, factory, make_cmd, name: str,
@@ -4205,49 +4332,19 @@ def classic_drive(data_dir: str, dev, factory, make_cmd, name: str,
         for _ in range(3):
             ra.process_command(leader, make_cmd(99, warm), router=router)
             warm += 1
-        clients = [ClassicClient(i, CLASSIC_PIPE, make_cmd)
-                   for i in range(CLASSIC_DEGREE)]
 
         def send(items, cb):
             ra.pipeline_commands(leader, items, notify_to=cb, router=router,
                                  trace_ctx=False)
-        stop = threading.Event()
-        threads = [threading.Thread(target=c.run, args=(send, stop),
-                                    daemon=True) for c in clients]
         wal0 = system.wal.stats()
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        time.sleep(CLASSIC_SECONDS)
-        stop.set()
-        for t in threads:
-            t.join(timeout=10)
-        acked_in_window = sum(len(c.acked) for c in clients)
-        elapsed = time.perf_counter() - t0
-        deadline = time.monotonic() + 60
-        while not all(c.idle() for c in clients):
-            if time.monotonic() > deadline:
-                raise AssertionError(f"{name}: acknowledgements missing: "
-                                     f"{[c.pipe - c.credit for c in clients]}")
-            time.sleep(0.01)
+        row = run_clients(send, make_cmd, name)
+        row.pop("acked_corrs")
         commit = settle_members(node, sids)
         wal1 = system.wal.stats()
         srvs = [node.shells[s.name].server for s in sids]
-        acked = [corr for c in clients for corr in c.acked]
-        sent = sum(c.sent for c in clients)
-        if len(acked) != sent or len(set(acked)) != len(acked):
-            raise AssertionError(f"{name}: {sent} sent, {len(acked)} acked, "
-                                 f"{len(set(acked))} distinct")
-        lats = sorted(x for c in clients for x in c.lats)
-        k = len(lats)
         stats = node.classic_stats()
-        row = {
-            "committed_cmds_per_s": acked_in_window / elapsed,
-            "acked": len(acked), "elapsed_s": elapsed, "commit_index": commit,
-            "p50_applied_latency_ms": 1e3 * lats[k // 2] if k else -1.0,
-            "p99_applied_latency_ms":
-                1e3 * lats[min(k - 1, int(k * 0.99))] if k else -1.0,
-            "latency_samples": k,
+        row.update({
+            "commit_index": commit,
             "fsyncs": wal1["syncs"] - wal0["syncs"],
             "records_per_fsync": (wal1["writes"] - wal0["writes"]) /
             max(1, wal1["syncs"] - wal0["syncs"]),
@@ -4255,7 +4352,7 @@ def classic_drive(data_dir: str, dev, factory, make_cmd, name: str,
             "encode_share_pct": stats.get("encode_share_pct", -1.0),
             "classic_stats": stats, "warm_commands": warm,
             "leader_changed": await_classic_leader(node, sids) != leader,
-        }
+        })
         states = [s.machine_state for s in srvs]
         log = srvs[0].log
         committed = [log.fetch(i) for i in range(
@@ -4304,21 +4401,12 @@ def phase_classic_path(dev, card: str) -> dict:
     emit({"phase": "classic_path_noop", "nvidia_smi": card,
           "host_cpu": host_cpu_model(), "cores": os.cpu_count(), **row})
 
-    keys = 64
-    rngs = {}
-
-    def kv_cmd(cid, seq):
-        rng = rngs.setdefault(cid, np.random.default_rng(1000 + cid))
-        k, v, op = (int(x) for x in rng.integers(0, [keys, 2 ** 31 - 1, 4]))
-        return ("put", k, v) if op else ("get", k)
+    keys = CLASSIC_KEYS
     kv_row, kv_states, kv_recovered, committed = classic_drive(
         str(WAL_ROOT / "classic" / "jit_kv"), dev,
-        lambda: JitKvMachine(n_keys=keys), kv_cmd, "kv", want_log=True)
-    model = [-1] * keys
-    for e in committed:
-        data = getattr(e.command, "data", None)
-        if isinstance(data, tuple) and data[0] == "put":
-            model[data[1]] = data[2]
+        lambda: JitKvMachine(n_keys=keys), kv_bench_cmd(), "kv",
+        want_log=True)
+    model = kv_model([getattr(e.command, "data", None) for e in committed])
     got = [s.cpu().tolist() for s in kv_states]
     back = [s.cpu().tolist() for s in kv_recovered]
     if got != [model] * 3 or back != got or \
@@ -4335,6 +4423,607 @@ def phase_classic_path(dev, card: str) -> dict:
               "launches_not_zero": launches})
     emit({"phase": "classic_path", "seconds": time.perf_counter() - t0,
           "host_launches": launches})
+    return launches
+
+
+# -- the classic plane across OS processes: tcp_parity and tcp_path ---------
+
+#: bench_classic.py's phase B: one OS process a member
+TCP_MEMBERS = ("cn1", "cn2", "cn3")
+#: phase B's client refills a window starved this long (bench_classic.py)
+TCP_CREDIT_RESET_S = 2.0
+
+
+def tcp_machine(kind: str):
+    """The member processes' machines, by name (registered as the machine
+    spec ``chip_tcp`` in every member, so a control-plane start and a
+    restart from disk build them too)."""
+    from ra_tpu_torch.core.machine import SimpleMachine
+    from ra_tpu_torch.models import FifoMachine, JitKvMachine
+    return {"noop": lambda: noop_bench_machine(record=True),
+            "snapcounter": lambda: noop_bench_machine(release=32),
+            "counter": lambda: SimpleMachine(lambda c, s: s + c, 0),
+            "list": lambda: SimpleMachine(lambda c, s: s + [c], []),
+            "kv": lambda: JitKvMachine(n_keys=CLASSIC_KEYS),
+            "kv16": lambda: JitKvMachine(n_keys=16),
+            "fifo": FifoMachine}[kind]()
+
+
+def tcp_member_op(node, router, system, name: str, op: str, args) -> tuple:
+    """One of the parent's ops on this member; its answer's payload.  A
+    cluster's server here is ``ServerId(cluster, name)``."""
+    import ra_tpu_torch as ra
+    from ra_tpu_torch.core.types import Membership, ServerConfig, ServerId, \
+        UserCommand
+    from ra_tpu_torch.machines import machine_spec, resolve_machine
+    me = ServerId(args[0], name) if args and isinstance(args[0], str) \
+        else None
+    if op == "book":
+        router.address_book.update(args[0])
+    elif op == "start":
+        cluster, kind, members, timeout_ms = args
+        node.start_server(ServerConfig(
+            server_id=me, uid=f"{cluster}_{name}", cluster_name=cluster,
+            initial_members=tuple(ServerId(cluster, n) for n in members),
+            machine=resolve_machine(machine_spec("chip_tcp", kind=kind)),
+            election_timeout_ms=timeout_ms, tick_interval_ms=200))
+    elif op == "elect":
+        ra.trigger_election(me, router)
+    elif op == "command":
+        r = ra.process_command(me, args[1], router=router, timeout=args[2])
+        return r.reply, r.leader.node
+    elif op == "state":
+        sh = node.shells.get(args[0])
+        if sh is None:
+            return ({"raft": "noproc", "state": None},)
+        srv = sh.server
+        st = srv.machine_state if args[1] else None
+        if isinstance(st, torch.Tensor):
+            st = (st.device.type, str(st.dtype), st.cpu().tolist())
+        return ({"raft": srv.raft_state.value, "term": srv.current_term,
+                 "commit": srv.commit_index, "applied": srv.last_applied,
+                 "state": st},)
+    elif op == "log":
+        # the committed user commands: (correlation, data), log order
+        srv = node.shells[args[0]].server
+        return ([(e.command.correlation, e.command.data)
+                 for e in (srv.log.fetch(i) for i in range(
+                     max(1, srv.log.first_index()), srv.last_applied + 1))
+                 if isinstance(e.command, UserCommand)],)
+    elif op == "applied":
+        return bytes(node.shells[args[0]].server.machine.applied),
+    elif op == "members":
+        return sorted(s.node for s in node.shells[args[0]].server.cluster),
+    elif op == "metrics":
+        return ra.key_metrics(me, router=router),
+    elif op == "overview":
+        return router.overview(),
+    elif op == "partition":
+        for n in args[0]:
+            router.block_node(n)
+    elif op == "heal":
+        for n in list(router.blocked_nodes):
+            router.unblock_node(n)
+    elif op in ("add_member", "remove_member"):
+        kw = {"membership": Membership.PROMOTABLE} \
+            if op == "add_member" else {}
+        return str(getattr(ra, op)(me, ServerId(args[0], args[1]),
+                                   router=router, **kw)),
+    elif op == "kill_wal":
+        system.wal.kill()
+    elif op == "wal_alive":
+        return bool(system.wal.alive),
+    elif op == "launches":
+        return {k: m.LAUNCHES for k, m in kernel_modules().items()},
+    else:
+        raise ValueError(f"unknown op {op}")
+    return ()
+
+
+def tcp_member_main(name: str, data_dir, device, cmd_q, res_q,
+                    port: int = 0) -> None:
+    """One member in its own (spawned) process: a RaNode on ``device``
+    behind a TcpRouter bound to ``port`` (0: a free one, reported with its
+    readiness), over a RaSystem at ``data_dir`` (None: in-memory logs);
+    then the parent's ops (:func:`tcp_member_op`), each answered
+    ``("ok", ...)`` or ``("err", repr)``, until ``stop``."""
+    import ra_tpu_torch as ra
+    from ra_tpu_torch.core.machine import ApplyMeta
+    from ra_tpu_torch.machines import register_machine
+    from ra_tpu_torch.transport.tcp import TcpRouter
+    register_machine("chip_tcp", tcp_machine)
+    if device != "cpu":
+        # the process's first card work (its CUDA context, the first
+        # kernels) takes seconds: done here, not on the node's one
+        # thread, where it would outlast the election timeout
+        warm = tcp_machine("kv16")
+        warm.apply(ApplyMeta(1, 1), ("put", 0, 0),
+                   warm.init({"device": device}))
+    router = TcpRouter(("127.0.0.1", port), {})
+    system = None if data_dir is None else ra.RaSystem(data_dir)
+    node = ra.RaNode(name, router=router, system=system, device=device)
+    res_q.put(("ready", name, router.listen_addr[1]))
+    while True:
+        op, *args = cmd_q.get()
+        if op == "stop":
+            break
+        try:
+            res_q.put(("ok", *tcp_member_op(node, router, system, name, op,
+                                            args)))
+        except Exception as exc:  # noqa: BLE001 -- reported to the parent
+            res_q.put(("err", repr(exc)))
+    node.stop()
+    router.stop()
+    if system is not None:
+        system.close()
+    res_q.put(("stopped", name))
+
+
+class TcpCluster:
+    """Member processes over TCP, one a name, spawned (CUDA does not
+    survive fork): each a RaNode on ``device`` behind a TcpRouter, over
+    its own RaSystem under ``root`` (None: in-memory logs), driven over a
+    pair of queues (:func:`tcp_member_op`); a client TcpRouter here on
+    first use of :attr:`client`."""
+
+    def __init__(self, names=TCP_MEMBERS, root=None, device="cpu"):
+        import multiprocessing as mp
+        self.ctx = mp.get_context("spawn")
+        self.names, self.root, self.device = list(names), root, device
+        self.ports = {n: 0 for n in self.names}
+        self.chans, self.procs = {}, {}
+        self.started = {n: [] for n in self.names}
+        try:
+            for n in self.names:
+                self._spawn(n)
+            for n in self.names:
+                self._ready(n)
+            for n in self.names:
+                self.call(n, "book", self.book(n))
+        except BaseException:
+            self.stop()
+            raise
+
+    def _spawn(self, n: str) -> None:
+        self.chans[n] = (self.ctx.Queue(), self.ctx.Queue())
+        data_dir = None if self.root is None else str(Path(self.root) / n)
+        self.procs[n] = self.ctx.Process(
+            target=tcp_member_main, daemon=True,
+            args=(n, data_dir, self.device, *self.chans[n], self.ports[n]))
+        self.procs[n].start()
+
+    def _ready(self, n: str) -> None:
+        got = self._answer(n, "ready", 300)
+        if got[0] != "ready":
+            raise AssertionError(f"member {n}: {got}")
+        self.ports[n] = got[2]
+
+    def book(self, n: str = None) -> dict:
+        """The members' addresses (but ``n``'s own)."""
+        return {m: ("127.0.0.1", p) for m, p in self.ports.items() if m != n}
+
+    def _answer(self, n: str, what: str, timeout: float):
+        import queue
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                return self.chans[n][1].get(timeout=1.0)
+            except queue.Empty:
+                if not self.procs[n].is_alive():
+                    raise RuntimeError(f"member {n} died awaiting {what}") \
+                        from None
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"member {n}: no answer to {what}") \
+                        from None
+
+    def ask(self, n: str, *cmd, timeout: float = 120.0) -> tuple:
+        """``n``'s answer to one op: ``("ok", ...)`` or ``("err", ...)``."""
+        self.chans[n][0].put(cmd)
+        return self._answer(n, cmd[0], timeout)
+
+    def call(self, n: str, *cmd, timeout: float = 120.0) -> tuple:
+        """:meth:`ask`'s payload; an error answer raises."""
+        got = self.ask(n, *cmd, timeout=timeout)
+        if got[0] != "ok":
+            raise AssertionError(f"member {n}: {cmd[0]}: {got}")
+        return got[1:]
+
+    def start(self, cluster: str, kind: str, members=None, on=None,
+              election_timeout_ms: int = 800) -> list:
+        """A cluster of ``members`` (all) with its servers started on
+        ``on`` (every member); a respawned member starts it again."""
+        members = list(members or self.names)
+        for n in on or members:
+            args = (cluster, kind, members, election_timeout_ms)
+            self.call(n, "start", *args)
+            self.started[n].append(args)
+        return members
+
+    def serve(self, cluster: str, kind: str, warm) -> tuple:
+        """Start ``cluster`` of ``kind`` on every member, elect through the
+        client, and run ``warm`` through it: (server ids, leader)."""
+        import ra_tpu_torch as ra
+        from ra_tpu_torch.core.types import ForceElectionEvent, ServerId
+        sids = [ServerId(cluster, n) for n in self.start(cluster, kind)]
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            self.client.send("?", sids[0], ForceElectionEvent())
+            try:
+                res = ra.process_command(sids[0], warm, router=self.client,
+                                         timeout=5.0)
+                return sids, res.leader
+            except TimeoutError:
+                pass
+        raise AssertionError(f"{cluster}: no leader elected over TCP")
+
+    def leader(self, cluster: str, timeout: float = 60.0) -> str:
+        """The node of a live member that reads itself leader."""
+        deadline = time.monotonic() + timeout
+        states = {}
+        while time.monotonic() < deadline:
+            for n in self.names:
+                if self.procs[n].is_alive():
+                    states[n] = self.call(n, "state", cluster, False)[0]
+                    if states[n]["raft"] == "leader":
+                        return n
+            time.sleep(0.2)
+        raise TimeoutError(f"{cluster}: no leader: {states}")
+
+    def states(self, cluster: str, members=None) -> dict:
+        """Each member's state once all have applied the highest commit
+        index seen."""
+        members = members or self.names
+        deadline = time.monotonic() + 120
+        while True:
+            got = {n: self.call(n, "state", cluster, False)[0]
+                   for n in members}
+            commit = max(g["commit"] for g in got.values())
+            if all(g["applied"] == commit for g in got.values()):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{cluster}: members did not converge: "
+                                     f"{got}")
+            time.sleep(0.05)
+        return {n: self.call(n, "state", cluster, True)[0] for n in members}
+
+    def launches(self) -> dict:
+        return {n: self.call(n, "launches")[0] for n in self.names
+                if self.procs[n].is_alive()}
+
+    def kill(self, n: str) -> None:
+        self.procs[n].kill()
+        self.procs[n].join(timeout=30)
+
+    def respawn(self, n: str) -> None:
+        """Restart a (killed) member over its data, on its port, and the
+        clusters it served."""
+        self._spawn(n)
+        self._ready(n)
+        self.call(n, "book", self.book(n))
+        for args in self.started[n]:
+            self.call(n, "start", *args)
+
+    def partition(self, victim: str) -> None:
+        """Cut ``victim`` off from every other member, both ways."""
+        rest = [n for n in self.names if n != victim]
+        self.call(victim, "partition", rest)
+        for n in rest:
+            self.call(n, "partition", [victim])
+
+    def heal(self) -> None:
+        for n in self.names:
+            self.call(n, "heal")
+
+    @functools.cached_property
+    def client(self):
+        from ra_tpu_torch.transport.tcp import TcpRouter
+        return TcpRouter(("127.0.0.1", 0), self.book())
+
+    def stop(self) -> None:
+        if "client" in self.__dict__:
+            self.client.stop()
+        for n, p in self.procs.items():
+            if p.is_alive():
+                self.chans[n][0].put(("stop",))
+        deadline = time.monotonic() + 30
+        for p in self.procs.values():
+            p.join(timeout=max(0.1, deadline - time.monotonic()))
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+
+
+def corr_payload(cid: int, seq: int) -> bytes:
+    """Phase B's 256-byte noop payload, its correlation in the first 8
+    bytes (what a recording noop machine keeps)."""
+    return struct.pack("<ii", cid, seq).ljust(CLASSIC_DATA_SIZE, b"\0")
+
+
+def check_acked_once(name: str, row: dict, log: list) -> None:
+    """Every distinct acknowledged correlation in the committed log (or a
+    member's applied sequence) ``log`` exactly once, and no client
+    command in it twice."""
+    client = [c for c in log if c is not None and c[0] != 99]
+    counts = collections.Counter(client)
+    missing = set(row["acked_corrs"]) - set(counts)
+    twice = sum(1 for c in counts.values() if c > 1)
+    row.update({"acked_not_in_log": len(missing), "in_log_twice": twice,
+                "client_commands_in_log": len(client)})
+    if missing or twice:
+        raise AssertionError(f"{name}: {len(missing)} acked commands not in "
+                             f"the log, {twice} in it twice")
+
+
+def tcp_leg(cl: TcpCluster, cluster: str, kind: str, make_cmd) -> dict:
+    """bench_classic.py's phase B clients over the cluster's TCP reach:
+    the row, the leader's classic stats over node_call, the client
+    router's reliable-RPC counters and dropped sends, terms.  Where no
+    window was reset, no notification repeated and no leader changed,
+    every command sent is acknowledged once (run_clients' strict
+    check)."""
+    import ra_tpu_torch as ra
+    from ra_tpu_torch.telemetry import Observatory
+    warm = 3
+    sids, leader = cl.serve(cluster, kind, make_cmd(99, 0))
+    for i in range(1, warm):
+        ra.process_command(leader, make_cmd(99, i), router=cl.client)
+    term0 = cl.call(leader.node, "state", cluster, False)[0]["term"]
+
+    def send(items, cb):
+        ra.pipeline_commands(leader, items, notify_to=cb, router=cl.client,
+                             trace_ctx=False)
+    row = run_clients(send, make_cmd, f"tcp_path {kind}",
+                      reset_after_s=TCP_CREDIT_RESET_S)
+    stats = ra.node_call(leader.node, "classic_stats", {}, router=cl.client,
+                         timeout=30)
+    obs = Observatory.for_system(None, router=cl.client)
+    snap = obs.snapshot()
+    obs.close()
+    states = cl.states(cluster)
+    terms = [st["term"] for st in states.values()]
+    stable = not row["credit_resets"] and \
+        not row["repeated_notifications"] and set(terms) == {term0}
+    if stable and row["acked"] != row["sent"]:
+        raise AssertionError(f"tcp_path {kind}: {row['sent']} sent, "
+                             f"{row['acked']} acked, with no leader change")
+    row.update({"warm_commands": warm, "unacked": row["sent"] - row["acked"],
+                "client_dropped_sends": cl.client.dropped_sends,
+                "classic_stats": stats, "strict_once_check": stable,
+                "encode_share_pct": stats.get("encode_share_pct", -1.0),
+                "client_rpc": snap.get("rpc", {}), "terms": terms,
+                "commit_index": max(st["commit"] for st in states.values())})
+    return row, states
+
+
+def phase_tcp_path(dev, card: str) -> dict:
+    """bench_classic.py's phase B on the port: three member processes,
+    each a RaNode over its own RaSystem (WAL on build/'s disk) behind a
+    TcpRouter, election timeout 800 ms, tick 200 ms; the client router
+    here pipelining 5 clients x 500 in flight, 256-byte payloads, bursts
+    of 64, 10 s.  The noop counter (each member keeps the correlations it
+    applied, carried in the payload's first 8 bytes), then JitKvMachine(64)
+    applied on the card in every member with seeded int32 puts and gets.
+    Held: every acknowledged command in the committed log exactly once
+    and none twice; the noop members' counts equal, the KV members'
+    states equal to a plain model of the committed puts in log order."""
+    mods = kernel_modules(zero=True)
+    t0 = time.perf_counter()
+    shutil.rmtree(WAL_ROOT / "tcp_path", ignore_errors=True)
+    cl = TcpCluster(root=WAL_ROOT / "tcp_path", device=str(dev))
+    try:
+        row, states = tcp_leg(cl, "noop", "noop", corr_payload)
+        counts = {n: st["state"] for n, st in states.items()}
+        seqs = {n: [tuple(x) for x in np.frombuffer(
+            cl.call(n, "applied", "noop")[0], dtype=np.int32).reshape(
+                -1, 2).tolist()] for n in TCP_MEMBERS}
+        # a member that installed a snapshot did not apply what it holds
+        full = [n for n in TCP_MEMBERS if len(seqs[n]) == counts[n]]
+        if len(set(counts.values())) != 1 or not full or \
+                any(seqs[n] != seqs[full[0]] for n in full) or \
+                any(len(set(seqs[n])) != len(seqs[n]) or
+                    not set(seqs[n]) <= set(seqs[full[0]])
+                    for n in TCP_MEMBERS):
+            raise AssertionError(f"tcp_path noop: counts {counts}, applied "
+                                 f"{ {n: len(s) for n, s in seqs.items()} }, "
+                                 f"acked {row['acked']}")
+        check_acked_once("tcp_path noop", row, seqs[full[0]])
+        row.pop("acked_corrs")
+        emit({"phase": "tcp_path_noop", "nvidia_smi": card,
+              "host_cpu": host_cpu_model(), "cores": os.cpu_count(),
+              "members_applied_all": full,
+              "vs_target_20000": row["committed_cmds_per_s"] / 20_000, **row})
+        kv_row, kv_states = tcp_leg(cl, "kv", "kv", kv_bench_cmd())
+        log = cl.call("cn1", "log", "kv")[0]
+        check_acked_once("tcp_path kv", kv_row,
+                         [c and tuple(c) for c, _d in log])
+        kv_row.pop("acked_corrs")
+        want = (torch.device(dev).type, "torch.int32",
+                kv_model([d for _c, d in log]))
+        if any(st["state"] != want for st in kv_states.values()):
+            raise AssertionError("tcp_path kv: member states differ from "
+                                 "the plain model of the committed puts")
+        kv_row.pop("classic_stats")
+        emit({"phase": "tcp_path_jit_kv", "nvidia_smi": card,
+              "keys": CLASSIC_KEYS, **kv_row})
+        members = cl.launches()
+    finally:
+        cl.stop()
+        shutil.rmtree(WAL_ROOT / "tcp_path", ignore_errors=True)
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    if any(launches.values()) or any(v for m in members.values()
+                                     for v in m.values()):
+        raise AssertionError(f"tcp_path: launches {launches}, {members}")
+    emit({"phase": "tcp_path", "seconds": time.perf_counter() - t0,
+          "host_launches": launches, "member_launches": members})
+    return launches
+
+
+def fifo_script(client, n: int, seed: int) -> list:
+    """A seeded FifoClient script: n enqueues (one purge before them),
+    then dequeues, settled or not, the unsettled ones settled in seeded
+    groups, until the queue is empty; every message is dequeued once, in
+    order.  Returns every dequeue and settle reply."""
+    rng = np.random.default_rng(seed)
+    sent = [("m", i, int(rng.integers(-2 ** 31, 2 ** 31 - 1)))
+            for i in range(n)]
+    for m in sent:
+        client.enqueue(m)
+    client.flush(timeout=60.0)
+    out, held = [], []
+    while True:
+        settled = bool(rng.integers(0, 3) == 0)
+        res = client.dequeue(settled=settled, timeout=30.0)
+        if res == ("dequeue", "empty"):
+            break
+        out.append(res)
+        if not settled:
+            held.append(res[1][0])
+        if held and len(held) >= int(rng.integers(1, 6)):
+            out.append(("settle", client.settle(held, timeout=30.0).reply))
+            held = []
+    if held:
+        out.append(("settle", client.settle(held, timeout=30.0).reply))
+    got = [r[1][-1] for r in out if r[0] == "dequeue"]
+    if got != sent:
+        raise AssertionError(f"fifo script: {len(got)} of {len(sent)} "
+                             "messages dequeued, or out of order")
+    return out
+
+
+
+
+def tcp_leader_kill(cl: TcpCluster, bursts: int = 60,
+                    kill_at: int = 20) -> dict:
+    """Unique values pipelined in bursts of 64 to a list machine; the
+    leader's process killed at burst ``kill_at`` (its kernel launches
+    read just before), the stream carried on to the new leader (fresh
+    values only: an unacked one is never sent again).  Every acked value
+    on every survivor once, none twice."""
+    import ra_tpu_torch as ra
+    sids, leader = cl.serve("plist", "list", -1)
+    acked, lock = [], threading.Lock()
+
+    def on_notify(batch):
+        with lock:
+            acked.extend(c for c, _r in batch)
+    killed, t_kill, recovery_s, killed_launches = None, 0.0, None, None
+    for b in range(bursts):
+        ra.pipeline_commands(leader, [(v, v) for v in range(64 * b,
+                                                            64 * b + 64)],
+                             notify_to=on_notify, router=cl.client,
+                             trace_ctx=False)
+        time.sleep(0.01)
+        if b == kill_at:
+            killed = leader.node
+            killed_launches = cl.call(killed, "launches")[0]
+            t_kill = time.perf_counter()
+            cl.kill(killed)
+            rest = [s for s in sids if s.node != killed]
+            deadline = time.monotonic() + 60
+            while leader.node == killed:
+                if time.monotonic() > deadline:
+                    raise AssertionError("tcp_parity: no leader after kill")
+                try:
+                    leader = ra.process_command(rest[0], -2, router=cl.client,
+                                                timeout=5.0).leader
+                except TimeoutError:
+                    pass
+            recovery_s = time.perf_counter() - t_kill
+    last, quiet = -1, time.monotonic()
+    while time.monotonic() - quiet < 2.0:
+        with lock:
+            n = len(acked)
+        if n != last:
+            last, quiet = n, time.monotonic()
+        time.sleep(0.05)
+    rest = [n for n in TCP_MEMBERS if n != killed]
+    lists = [st["state"] for st in cl.states("plist", rest).values()]
+    final = lists[0]
+    lost = len(set(acked) - set(final))
+    doubled = len(final) - len(set(final))
+    if any(x != final for x in lists) or lost or doubled or \
+            len(set(acked)) != len(acked):
+        raise AssertionError(f"tcp_parity kill: lost {lost}, doubled "
+                             f"{doubled}, members equal "
+                             f"{all(x == final for x in lists)}")
+    return {"sent": 64 * bursts, "acked": len(acked),
+            "committed": len(final), "lost_acked": lost,
+            "applied_twice": doubled, "killed": killed,
+            "killed_launches": killed_launches,
+            "new_leader": leader.node, "recovery_s": recovery_s}
+
+
+def phase_tcp_parity(dev) -> dict:
+    """The classic plane over TCP against the port in one process on the
+    CPU: a seeded JitKvMachine(16) script of 2,000 commands pipelined in
+    order through the three member processes (state on the card) and
+    through a co-hosted cluster on the CPU, every reply, state and applied
+    count equal; a seeded FifoClient script (200 enqueues, dequeues and
+    settles) the same on both, every message dequeued once in order; then
+    a leader process killed mid-stream: 0 acked values lost, 0 applied
+    twice.  The killed member's launches are read just before the kill."""
+    import ra_tpu_torch as ra
+    from ra_tpu_torch.models import FifoClient, FifoMachine, JitKvMachine
+    mods = kernel_modules(zero=True)
+    t0 = time.perf_counter()
+    root = WAL_ROOT / "tcp_parity"
+    shutil.rmtree(root, ignore_errors=True)
+    cmds = classic_scripts(2000, seed=10)["jit_kv"]
+    runs = {}
+    system, node, router, sids, leader = co_hosted(
+        str(root / "cpu_kv"), "cpu", lambda: JitKvMachine(n_keys=16), "pkv")
+    try:
+        ra.process_command(leader, ("get", 0), router=router)
+        replies = pipelined(ra, leader, router, cmds)
+        settle_members(node, sids)
+        runs["cpu"] = (replies, [
+            (str(s.machine_state.dtype), s.machine_state.tolist(),
+             s.last_applied)
+            for s in (node.shells[x.name].server for x in sids)])
+    finally:
+        node.stop()
+        system.close()
+    system, node, router, sids, _leader = co_hosted(
+        str(root / "cpu_fifo"), "cpu", FifoMachine, "pfifo")
+    try:
+        ra.process_command(_leader, ("purge",), router=router)
+        fifo_cpu = fifo_script(FifoClient(sids, router=router, tag="f"),
+                               200, seed=11)
+    finally:
+        node.stop()
+        system.close()
+    cl = TcpCluster(root=root / "tcp", device=str(dev))
+    try:
+        tsids, tleader = cl.serve("pkv", "kv16", ("get", 0))
+        t1 = time.perf_counter()
+        replies = pipelined(ra, tleader, cl.client, cmds)
+        kv_s = time.perf_counter() - t1
+        states = cl.states("pkv")
+        runs["tcp"] = (replies, [(st["state"][1], st["state"][2],
+                                  st["applied"]) for st in states.values()])
+        devices = {st["state"][0] for st in states.values()}
+        if runs["tcp"] != runs["cpu"] or devices != {torch.device(dev).type}:
+            raise AssertionError(f"tcp_parity kv: TCP on {devices} differs "
+                                 "from the CPU run")
+        fsids, _ = cl.serve("pfifo", "fifo", ("purge",))
+        fifo_tcp = fifo_script(FifoClient(fsids, router=cl.client, tag="f"),
+                               200, seed=11)
+        if fifo_tcp != fifo_cpu:
+            raise AssertionError("tcp_parity fifo: TCP differs from CPU")
+        kill = tcp_leader_kill(cl)
+        members = {**cl.launches(), kill["killed"]: kill["killed_launches"]}
+    finally:
+        cl.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    if any(launches.values()) or any(v for m in members.values()
+                                     for v in m.values()):
+        raise AssertionError(f"tcp_parity: launches {launches}, {members}")
+    emit({"phase": "tcp_parity", "seconds": time.perf_counter() - t0,
+          "kv_commands": len(cmds), "kv_applied": runs["tcp"][1][0][2],
+          "kv_tcp_cmds_per_s": len(cmds) / kv_s,
+          "fifo_replies": len(fifo_tcp), "leader_kill": kill,
+          "host_launches": launches, "member_launches": members})
     return launches
 
 
@@ -4504,6 +5193,7 @@ def main() -> int:
     from ra_tpu_torch.ops import commit_phase as cpm
     from ra_tpu_torch.ops import pallas_quorum as pq
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4558,6 +5248,8 @@ def main() -> int:
         mesh_launches = phase_mesh_path(dev, volatile, state_to_numpy)
         classic_parity_launches = phase_classic_parity(dev)
         classic_path_launches = phase_classic_path(dev, card)
+        tcp_parity_launches = phase_tcp_parity(dev)
+        tcp_path_launches = phase_tcp_path(dev, card)
         placement_parity_launches = phase_placement_parity(dev,
                                                            state_to_numpy)
         placement_path_launches = phase_placement_path(dev, card)
@@ -4587,6 +5279,8 @@ def main() -> int:
         k["launches_mesh_path"] = mesh_launches[name]
         k["launches_classic_parity"] = classic_parity_launches[name]
         k["launches_classic_path"] = classic_path_launches[name]
+        k["launches_tcp_parity"] = tcp_parity_launches[name]
+        k["launches_tcp_path"] = tcp_path_launches[name]
         k["launches_placement_parity"] = placement_parity_launches[name]
         k["launches_placement_path"] = placement_path_launches[name]
         if name in folds:
@@ -4594,6 +5288,7 @@ def main() -> int:
             k["executions_profiled"] = folds[name]["profiled_executions"]
         else:
             k["launches"] = launches[name]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels + fold_kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

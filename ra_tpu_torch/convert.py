@@ -21,10 +21,15 @@ so unpickling them as they are would import the reference.  Every
 pickle load of the port's classic plane goes through :func:`loads`
 instead, whose :class:`ClassicUnpickler` maps a ``ra_tpu.X`` path onto
 ``ra_tpu_torch.X`` and refuses by name any ``ra_tpu`` path the port has
-no counterpart for, and any JAX array (a reference JitMachine's state
-pickled into a snapshot: the port cannot read it without JAX).  So the
-port's ``RaSystem`` recovers a directory the reference wrote.  The
-reverse is not promised: the port's own pickles name ``ra_tpu_torch``.
+no counterpart for.  A JAX array (a reference JitMachine's state pickled
+into a snapshot) pickles as ``jax._src.array._reconstruct_array`` over
+numpy's own reduce of its host value; that one name reads as a CPU
+tensor of the same dtype and values, with no JAX import, and the
+recovering server puts the state on its machine's device
+(``JitMachine.place_state``).  Every other ``jax``/``jaxlib`` name is
+refused.  So the port's ``RaSystem`` recovers a directory the reference
+wrote.  The reverse is not promised: the port's own pickles name
+``ra_tpu_torch``.
 """
 from __future__ import annotations
 
@@ -132,13 +137,24 @@ def state_from_positional(arrays: dict, like, device: torch.device):
     return tree_unflatten(like, loaded)
 
 
+def _tensor_from_jax_array(fun, args, arr_state, _aval_state):
+    """The reduce of a pickled JAX array (``_reconstruct_array``): numpy
+    rebuilds the host value, which comes back as a CPU tensor."""
+    value = fun(*args)
+    value.__setstate__(arr_state)
+    return torch.from_numpy(np.array(value))
+
+
 class ClassicUnpickler(pickle.Unpickler):
     """An unpickler for classic-plane data written by either package: a
     class under ``ra_tpu`` resolves to its counterpart under
-    ``ra_tpu_torch``; a reference path the port lacks, and any class of
-    ``jax``/``jaxlib``, raises ``pickle.UnpicklingError`` naming it."""
+    ``ra_tpu_torch``; a JAX array reads as a CPU tensor; a reference path
+    the port lacks, and any other ``jax``/``jaxlib`` name, raises
+    ``pickle.UnpicklingError`` naming it."""
 
     def find_class(self, module: str, name: str):
+        if (module, name) == ("jax._src.array", "_reconstruct_array"):
+            return _tensor_from_jax_array
         top = module.split(".", 1)[0]
         if top == "ra_tpu":
             ported = "ra_tpu_torch" + module[len("ra_tpu"):]
@@ -151,9 +167,8 @@ class ClassicUnpickler(pickle.Unpickler):
                     "port") from exc
         if top in ("jax", "jaxlib"):
             raise pickle.UnpicklingError(
-                f"the pickle holds a JAX object ({module}.{name}), such as "
-                "a reference JitMachine's state; the port reads no JAX "
-                "arrays")
+                f"the pickle holds a JAX object ({module}.{name}); the port "
+                "reads JAX arrays only")
         return super().find_class(module, name)
 
 

@@ -255,10 +255,19 @@ class JitMachine(Machine):
         self.check_device(dev)
         return tree_map(lambda x: x[0], self.jit_init(1, dev))
 
+    def place_state(self, state: Any, config: dict) -> Any:
+        """A state recovered from a snapshot, on the device :meth:`init`
+        would use for ``config``.  A reference snapshot's JAX arrays read
+        as CPU tensors (``convert.loads``), so without this a card node
+        would apply them on the CPU."""
+        dev = resolve_device((config or {}).get("device"))
+        self.check_device(dev)
+        return tree_map(lambda x: x.to(dev), state)
+
     def apply(self, meta: ApplyMeta, command: Any, state: Any):
         """One committed command through :meth:`jit_apply` on the device
-        the state lives on (a state recovered from a snapshot stays where
-        it was pickled from).  The meta scalars and the encoded command
+        the state lives on (a recovering server puts a snapshot's state
+        on the machine's device first: :meth:`place_state`).  The meta scalars and the encoded command
         go there in one copy, from pinned memory on a card, so the copy
         waits for nothing; the only host sync is the reply's own read in
         :meth:`decode_reply`."""

@@ -221,7 +221,7 @@ class RaServer:
         snap = self.log.recover_machine_base()
         if snap is not None:
             meta, mac_state = snap
-            self.machine_state = mac_state
+            self.machine_state = self._placed(mac_state)
             base = meta.index
             self.effective_machine_version = meta.machine_version
             self.effective_machine = self.machine.which_module(
@@ -248,6 +248,13 @@ class RaServer:
         # commit index resumes at the persisted apply watermark; recover()
         # replays (base, commit_index] (ra_server.erl:305-320, 376-414)
         self.commit_index = max(base, persisted_la)
+
+    def _placed(self, state):
+        """A snapshot's machine state on the device the machine's init
+        config names (JitMachines; a host machine's state as it is)."""
+        place = getattr(self.machine, "place_state", None)
+        return state if place is None else place(state,
+                                                 self._machine_config)
 
     def recover(self) -> list:
         """Replay committed-but-unapplied entries with effects suppressed
@@ -1039,7 +1046,7 @@ class RaServer:
                 recovered = self.log.recover_snapshot_state()
                 assert recovered is not None
                 old_state = self.machine_state
-                _, self.machine_state = recovered
+                self.machine_state = self._placed(recovered[1])
                 self.last_applied = meta.index
                 self.commit_index = max(self.commit_index, meta.index)
                 self.effective_machine_version = meta.machine_version

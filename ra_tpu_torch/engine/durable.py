@@ -884,11 +884,20 @@ class EngineDurability:
         """Bound the unconfirmed window: wait for WAL confirms when more
         than ``max_pending`` steps are in flight on the laggiest shard
         (the flow control a gen_batch_server gets from its bounded
-        mailbox)."""
+        mailbox).  A shard WAL that dies while the shard supervisor runs
+        is waited out: the supervisor restarts it and wakes the cond,
+        and the shard worker resends its unconfirmed blocks.  Unlike the
+        reference, which raises as soon as it sees the dead shard and so
+        races the restart, WalDown is raised only with no supervisor, or
+        at the deadline with the shard still down."""
+        supervised = self._sup_thread is not None
 
         def lag() -> int:
             return self.step_seq - min(sh.confirmed_step
                                        for sh in self._shards)
+
+        def down() -> list:
+            return [sh.idx for sh in self._shards if not sh.wal.alive]
 
         deadline = time.monotonic() + timeout
         while True:
@@ -897,18 +906,18 @@ class EngineDurability:
                 self._cond.wait_for(
                     lambda: lag() < self.max_pending
                     or any(sh.error for sh in self._shards)
-                    or any(not sh.wal.alive for sh in self._shards),
+                    or (not supervised and bool(down())),
                     min(0.5, max(0.0, deadline - time.monotonic())))
                 under = lag() < self.max_pending
             self._raise_shard_error()
             if under:
                 return
-            for sh in self._shards:
-                if not sh.wal.alive:
-                    raise WalDown(
-                        f"engine WAL shard {sh.idx} died under "
-                        "backpressure; call wal.restart() to resume")
-            if time.monotonic() > deadline:
+            late = time.monotonic() > deadline
+            if down() and (late or not supervised):
+                raise WalDown(
+                    f"engine WAL shards {down()} died under "
+                    "backpressure; call wal.restart() to resume")
+            if late:
                 raise TimeoutError("WAL confirms stalled")
 
     # -- observability ------------------------------------------------------

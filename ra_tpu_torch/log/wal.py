@@ -901,13 +901,35 @@ class Wal:
     # -- files / rollover / recovery ---------------------------------------
 
     def _open_new_file(self) -> None:
-        self.counters["wal_files"] += 1
-        self._file_seq += 1
-        self._file_path = os.path.join(self.dir,
-                                       f"{self._file_seq:08d}.wal")
-        self._fd = IO.wal_open(self._file_path, truncate=True,
-                               o_sync=self.write_strategy == "o_sync")
-        IO.write_batch(self._fd, MAGIC, 0)
+        """Open the next file and write its magic.  A magic write that
+        fails (torn or refused) unlinks that file, which holds no
+        record, and opens the next one, up to ``MAX_POISON_STREAK``
+        files; the reference raises at the first, out of ``__init__``,
+        ``restart`` or a fault rollover."""
+        for tries in range(MAX_POISON_STREAK, 0, -1):
+            self.counters["wal_files"] += 1
+            self._file_seq += 1
+            self._file_path = os.path.join(self.dir,
+                                           f"{self._file_seq:08d}.wal")
+            self._fd = IO.wal_open(self._file_path, truncate=True,
+                                   o_sync=self.write_strategy == "o_sync")
+            try:
+                IO.write_batch(self._fd, MAGIC, 0)
+                break
+            except OSError as exc:
+                if tries == 1:
+                    raise
+                _fault_note("faults_hit")
+                _fault_note("poisoned_files")
+                record("wal.poison", file=os.path.basename(self._file_path),
+                       error=repr(exc)[:200], streak=self._poison_streak)
+                try:
+                    IO.close(self._fd)
+                    os.unlink(self._file_path)
+                except OSError:
+                    # safe to swallow: the file holds no record; a
+                    # leftover is read back as a torn file and skipped
+                    _fault_note("swallowed_oserrors")
         self._file_size = len(MAGIC)
         self._file_entries = 0
         self._registered_in_file = set()

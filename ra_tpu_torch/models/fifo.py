@@ -12,7 +12,7 @@ designed fresh around :class:`ra_tpu_torch.core.machine.Machine`:
   snapshots),
 * consumer/enqueuer "pids" are opaque hashable tokens; deliveries go out
   as :class:`SendMsg` effects which the node shell routes to callables
-  (see the reference's models/fifo_client.py:Mailbox, not ported yet),
+  (see models/fifo_client.py:Mailbox),
 * process lifecycle uses the Monitor/Demonitor machine effects plus the
   ``("down", pid, reason)`` / ``("nodeup", node)`` builtin commands
   (ra_machine.erl builtin_command; ra_fifo.erl:308-368),

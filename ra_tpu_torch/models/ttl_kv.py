@@ -165,3 +165,11 @@ class TtlKvMachine(JitMachine):
     def decode_query_reply(self, reply):
         code, val = int(reply[..., 0]), int(reply[..., 1])
         return (code, None if val < 0 else val)
+
+
+def query_live(state) -> dict:
+    """Query fun: live (unexpired) keys as a plain dict (host path)."""
+    clock = int(state["clock"])
+    return {k: v for k, (v, e) in enumerate(zip(state["vals"].tolist(),
+                                                state["exp"].tolist()))
+            if v >= 0 and (e == 0 or e > clock)}

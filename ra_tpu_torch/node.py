@@ -18,9 +18,9 @@ Responsibilities mirrored from ra_server_proc.erl:
 * registration in the node directory + leaderboard updates
 
 Transport is pluggable: LocalRouter routes in-process between RaNodes
-(the ct_slave-style multi-node tests run this way); the reference's
-``transport/tcp.py`` carries the same six message families across OS
-processes and is not ported yet.
+(the ct_slave-style multi-node tests run this way);
+``transport/tcp.py``'s ``TcpRouter`` carries the same six message families
+across OS processes.
 """
 from __future__ import annotations
 

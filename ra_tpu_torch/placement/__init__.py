@@ -12,7 +12,8 @@ the port's copy of ``ra_tpu/placement``, on the card.
 * :mod:`.soak`: all of it under live wire traffic with a mid-traffic
   kill-9, held to the exactly-once oracle over both engines.
 
-The reference's geo soak (``geo.py``) waits for the TCP transport.
+The reference's geo soak (``geo.py``: a TcpRouter in each of four OS
+processes, two hosting lane engines) is not ported yet.
 """
 from .table import (MACHINE_NAME, PlacementCache, PlacementTableMachine,
                     owned_ranges, placement_spec)

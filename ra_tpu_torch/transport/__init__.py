@@ -1,6 +1,6 @@
 """The transport plane of the port: the reliable control-plane RPC and
-the deterministic fault plans (``rpc.py``).  The reference's TCP router
-(``ra_tpu/transport/tcp.py``) is not ported yet."""
+the deterministic fault plans (``rpc.py``), and the TCP fabric between
+OS processes (``tcp.py``: ``TcpRouter``, with its failure detector)."""
 from .rpc import (  # noqa: F401
     FaultDecision,
     FaultPlan,
@@ -12,7 +12,8 @@ from .rpc import (  # noqa: F401
     live_fault_plans,
     reliable_node_call,
 )
+from .tcp import TcpRouter  # noqa: F401
 
 __all__ = ["FaultDecision", "FaultPlan", "FaultSpec", "RemoteError",
-           "RpcError", "RpcTimeout", "Unreachable", "live_fault_plans",
-           "reliable_node_call"]
+           "RpcError", "RpcTimeout", "TcpRouter", "Unreachable",
+           "live_fault_plans", "reliable_node_call"]

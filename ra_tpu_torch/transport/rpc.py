@@ -24,8 +24,9 @@ Ported with the plan: its specs, the registry, ``quiet``,
 ``unregister``, ``partition``/``heal``, ``overview`` and the per-frame
 decision (``decide``, ``is_partitioned``, ``recv_peer``) on the same
 seeded per-(peer, frame class, direction) streams as the reference's.
-The placement supervisor consults ``decide`` for its probes; the TCP
-transport, the other consumer, is not ported yet.
+The placement supervisor consults ``decide`` for its probes, and
+``transport/tcp.py``'s ``TcpRouter`` on every frame it sends or
+receives.
 """
 from __future__ import annotations
 

@@ -45,7 +45,7 @@ return), so they may be built and parsed per frame:
   connection.  This frame IS the generalized ``StopSending``: the
   status enum is the ingress plane's (ok/slow/defer/reject/dup/shed),
   one enum, one encoder (:func:`encode_credit`), shared with
-  :class:`~ra_tpu.models.fifo_client.FifoClient`.
+  :class:`~ra_tpu_torch.models.fifo_client.FifoClient`.
 * ``ACK``        server→client  ``<pad u16> <count u16>`` + ``count``
   records ``<sess u16> <acked u64>`` — per-session cumulative
   committed placed-row watermarks (flow-control grade: duplicate row

@@ -270,3 +270,37 @@ def _shed_fairness(fleet: LoopbackFleet) -> Optional[float]:
     shares = shed[seen] / rows[seen]
     return float(shares.max() / max(overall, 1e-12))
 
+
+
+def ladder_main(seed: int, rungs, *, durable: bool = False,
+                disk_faults: bool = False, socket_conns: int = 64,
+                **kw) -> list:
+    """Climb the ladder (``tools/soak.py --wire``'s rungs): one soak per
+    rung, socket side-car on the first (smallest) rung only, a FRESH WAL
+    dir per durable rung (rungs are independent runs, not restarts).
+    ``kw`` goes to :func:`run_wire_soak` (``device="cpu"`` for the CPU);
+    each row is stamped with :func:`ra_tpu_torch.utils.host_envelope`."""
+    import json
+    import tempfile
+
+    from ..utils import host_envelope
+    out = []
+    for i, conns in enumerate(rungs):
+        t0 = time.time()
+        with tempfile.TemporaryDirectory(prefix="wire_soak_") as d:
+            res = run_wire_soak(
+                seed, conns=conns,
+                socket_conns=socket_conns if i == 0 else 0,
+                wave_ops=max(20_000, conns // 2),
+                ring_records=16 if conns >= 1 << 19 else 32,
+                durable_dir=d if durable else None,
+                disk_faults=disk_faults, **kw)
+        res["rung"] = f"C{conns}"
+        res["host"] = host_envelope()
+        print(f"wire C{conns}: {res['wire_cmds_per_s']:.0f} cmds/s  "
+              f"shed={res['wire_shed_rate']:.4f}  "
+              f"recovery={res['wire_reconnect_recovery_s']:.2f}s  "
+              f"({time.time() - t0:.1f}s)", flush=True)
+        print(json.dumps(res), flush=True)
+        out.append(res)
+    return out

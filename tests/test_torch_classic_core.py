@@ -477,9 +477,9 @@ def test_seeded_images_cross_between_packages():
 
 def test_reference_fallback_pickles_read_through_convert():
     """A reference FALLBACK record (a membership command) decodes in the
-    port as the port's class, as does a ported reference class; a
-    reference class the port lacks, and a JAX array, are refused by
-    name."""
+    port as the port's class, as does a ported reference class; a JAX
+    array reads as an equal tensor; a reference name the port lacks, and
+    any other JAX name, are refused by name."""
     sid = ref_types.ServerId("s4", "node4")
     img = ref_codec.encode_command(ref_types.JoinCommand(sid))
     assert img[0] == ref_codec.TAG_FALLBACK
@@ -487,16 +487,23 @@ def test_reference_fallback_pickles_read_through_convert():
     assert type(got) is port_types.JoinCommand
     assert norm(got) == norm(ref_types.JoinCommand(sid))
 
-    from ra_tpu.placement.table import PlacementTableMachine
+    from ra_tpu.placement.geo import run_geo_soak
     from ra_tpu.transport.tcp import TcpRouter
-    from ra_tpu_torch.placement import table as port_table
-    with pytest.raises(pickle.UnpicklingError, match="ra_tpu.transport.tcp"):
-        convert.loads(pickle.dumps(TcpRouter))
+    from ra_tpu_torch.transport import tcp as port_tcp
+    with pytest.raises(pickle.UnpicklingError, match="ra_tpu.placement.geo"):
+        convert.loads(pickle.dumps(run_geo_soak))
     # a ported reference class reads as the port's
-    assert convert.loads(pickle.dumps(PlacementTableMachine)) is \
-        port_table.PlacementTableMachine
+    assert convert.loads(pickle.dumps(TcpRouter)) is port_tcp.TcpRouter
+    arrays = {"mac": jnp.asarray([7, -2 ** 31, 2 ** 31 - 1], jnp.int32),
+              "flag": jnp.asarray(True), "clock": jnp.int32(5)}
+    back = convert.loads(pickle.dumps(arrays))
+    assert sorted(back) == sorted(arrays)
+    for k, v in arrays.items():
+        assert isinstance(back[k], torch.Tensor), k
+        assert back[k].numpy().dtype == np.asarray(v).dtype, k
+        assert np.array_equal(back[k].numpy(), np.asarray(v)), k
     with pytest.raises(pickle.UnpicklingError, match="JAX"):
-        convert.loads(pickle.dumps({"mac": jnp.zeros((3,), jnp.int32)}))
+        convert.loads(pickle.dumps(jnp.int32))
     # the port's own pickles read back unchanged
     own = port_types.ServerId("a", "b")
     assert convert.loads(pickle.dumps(own)) == own

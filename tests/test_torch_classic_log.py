@@ -23,6 +23,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import ra_tpu
 import ra_tpu.codec as ref_codec
@@ -521,3 +522,195 @@ def test_every_put_answers_across_wal_rollovers(tmp_path):
         assert dep.settle() >= 200
     finally:
         dep.close()
+
+
+# -- a reference JitMachine snapshot, read by the port ------------------------
+
+def snapshotting(cls):
+    """``cls`` (a JitKvMachine of either package) releasing its log every
+    8 indexes, so its state lands in a snapshot."""
+    class Snapshotting(cls):
+        def apply(self, meta, command, state):
+            new, reply = super().apply(meta, command, state)
+            if meta.index % 8 == 0:
+                return new, reply, [self.release(meta.index, new)]
+            return new, reply
+    return Snapshotting
+
+
+def recover_jit_states(core, system_cls, base, machine, **core_kw):
+    """Every server of every node dir of ``base`` recovered into a bare
+    core: uid -> (snapshot index, last applied, {leaf: numpy array})."""
+    out = {}
+    for node in sorted(os.listdir(base)):
+        system = system_cls(os.path.join(base, node), wal_supervise=False)
+        try:
+            for uid in system.directory.uids():
+                snap = system.directory.config_of(uid)
+                cfg = machine.types.ServerConfig(
+                    server_id=machine.types.ServerId(*snap["server_id"]),
+                    uid=uid, cluster_name=snap["cluster_name"],
+                    initial_members=tuple(machine.types.ServerId(*m)
+                                          for m in snap["initial_members"]),
+                    machine=machine())
+                srv = core(cfg, system.log_factory(cfg), **core_kw)
+                srv.recover()
+                out[uid] = (srv.log.snapshot_index_term().index,
+                            srv.last_applied, leaf_arrays(srv.machine_state))
+        finally:
+            system.close()
+    return out
+
+
+def jit_kv_machines():
+    """Factories of a snapshotting ``JitKvMachine(8)`` of each package,
+    each carrying its package's types: (reference, port)."""
+    from ra_tpu.core.types import ReleaseCursor as RefRelease
+    from ra_tpu.models.jit_kv import JitKvMachine as RefJitKv
+    from ra_tpu_torch.models.jit_kv import JitKvMachine
+
+    ref_cls = snapshotting(RefJitKv)
+    ref_cls.release, ref_cls.types = staticmethod(RefRelease), ref_types
+    port_cls = snapshotting(JitKvMachine)
+    port_cls.release = staticmethod(port_types.ReleaseCursor)
+    port_cls.types = port_types
+    ref_machine = lambda: ref_cls(n_keys=8)  # noqa: E731
+    ref_machine.types = ref_types
+    port_machine = lambda: port_cls(n_keys=8)  # noqa: E731
+    port_machine.types = port_types
+    return ref_machine, port_machine
+
+
+def write_reference_jit_cluster(base: str, ref_machine) -> None:
+    """A reference three-node ``JitKvMachine`` cluster under ``base``: 29
+    seeded puts, snapshots every 8 indexes (JAX arrays in the pickle)."""
+    router = ra_tpu.LocalRouter()
+    sids = [ref_types.ServerId(f"m{i}", f"node{i}") for i in (1, 2, 3)]
+    systems = {s.node: RefSystem(os.path.join(base, s.node)) for s in sids}
+    nodes = {s.node: ra_tpu.RaNode(s.node, router=router,
+                                   log_factory=systems[s.node].log_factory)
+             for s in sids}
+    try:
+        for sid in sids:
+            nodes[sid.node].start_server(ref_types.ServerConfig(
+                server_id=sid, uid=f"uid{sid.name}", cluster_name="jkv",
+                initial_members=tuple(sids), machine=ref_machine(),
+                election_timeout_ms=300))
+        ra_tpu.trigger_election(sids[0], router)
+        leader = await_leader(router, sids)
+        rng = np.random.default_rng(13)
+        for _ in range(29):
+            k, v = (int(x) for x in rng.integers(0, [8, 2 ** 31 - 1]))
+            ra_tpu.process_command(leader, ("put", k, v), router=router)
+    finally:
+        for n in nodes.values():
+            n.stop()
+        for s in systems.values():
+            s.close()
+
+
+def leaf_arrays(st) -> dict:
+    """A machine state's leaves: name -> (device or None, numpy array)."""
+    leaves = st if isinstance(st, dict) else {"state": st}
+    return {k: (getattr(v, "device", None),
+                np.asarray(v.cpu() if hasattr(v, "cpu") else v))
+            for k, v in leaves.items()}
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+def test_port_recovers_reference_jit_machine_snapshot(tmp_path, device):
+    """A reference three-node ``JitKvMachine`` cluster whose snapshots hold
+    JAX arrays, recovered by the port: every member's state equal to the
+    reference's own recovery of the same directory (values and dtypes),
+    every leaf on the device the node names."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ra_tpu.core.server import RaServer as RefServer
+
+    ref_machine, port_machine = jit_kv_machines()
+    base = str(tmp_path / "ref")
+    write_reference_jit_cluster(base, ref_machine)
+    shutil.copytree(base, tmp_path / "for_port")
+    want = recover_jit_states(RefServer, RefSystem, base, ref_machine)
+    got = recover_jit_states(RaServer, RaSystem, str(tmp_path / "for_port"),
+                             port_machine, machine_config={"device": device})
+    assert sorted(got) == sorted(want) and len(want) == 3
+    for uid, (snap, applied, leaves) in want.items():
+        g_snap, g_applied, g_leaves = got[uid]
+        assert (g_snap, g_applied) == (snap, applied) and snap >= 24
+        assert sorted(g_leaves) == sorted(leaves)
+        for k, (_, arr) in leaves.items():
+            g_dev, g_arr = g_leaves[k]
+            assert g_dev.type == device, (uid, k, g_dev)
+            assert g_arr.dtype == arr.dtype and np.array_equal(g_arr, arr)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+def test_dbg_replays_reference_jit_machine_directory(tmp_path, device):
+    """``dbg.replay_log`` over each node of a reference ``JitKvMachine``
+    directory whose snapshot holds JAX arrays: the replayed state equal to
+    the reference ``dbg``'s (values and dtypes), and every leaf on the
+    device asked for, the snapshot's state as well as every applied one."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ra_tpu import dbg as ref_dbg
+    from ra_tpu_torch import dbg
+
+    ref_machine, port_machine = jit_kv_machines()
+    base = str(tmp_path / "ref")
+    write_reference_jit_cluster(base, ref_machine)
+    shutil.copytree(base, tmp_path / "for_port")
+    for node in ("node1", "node2", "node3"):
+        uid = f"uidm{node[-1]}"
+        d = os.path.join(base, node)
+        assert ref_dbg.read_log(d, uid)[0] is not None
+        want = leaf_arrays(ref_dbg.replay_log(d, uid, ref_machine()))
+        seen = []
+        got = leaf_arrays(dbg.replay_log(
+            str(tmp_path / "for_port" / node), uid, port_machine(),
+            on_entry=lambda e, st: seen.append(leaf_arrays(st)),
+            device=device))
+        assert seen and sorted(got) == sorted(want)
+        for leaves in seen + [got]:
+            assert {dev.type for dev, _ in leaves.values()} == {device}
+        for k, (_, arr) in want.items():
+            assert got[k][1].dtype == arr.dtype
+            assert np.array_equal(got[k][1], arr), (node, k)
+        if not torch.cuda.is_available():
+            # no device named: the card, which a snapshot's state is not
+            # quietly kept off
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                dbg.replay_log(str(tmp_path / "for_port" / node), uid,
+                               port_machine())
+
+
+def test_dbg_replays_reference_directory(tmp_path):
+    """``dbg.read_log`` and ``dbg.replay_log`` over each node of a
+    reference KV directory (snapshot, segments and WAL): the port reads
+    the same snapshot and entries and replays to the same state as the
+    reference's ``dbg``, every entry's state seen by ``on_entry`` too."""
+    from ra_tpu import dbg as ref_dbg
+    from ra_tpu_torch import dbg
+
+    base = str(tmp_path / "ref")
+    write_reference_cluster(base)
+    shutil.copytree(base, tmp_path / "for_port")
+    for node in ("node1", "node2", "node3"):
+        uid = f"uidm{node[-1]}"
+        runs = {}
+        for name, mod, machine, root in (
+                ("ref", ref_dbg, RefKv, base),
+                ("port", dbg, KvMachine, str(tmp_path / "for_port"))):
+            d = os.path.join(root, node)
+            snap, entries = mod.read_log(d, uid)
+            seen = []
+            state = mod.replay_log(
+                d, uid, machine(snapshot_interval=8),
+                on_entry=lambda e, st: seen.append((e.index, norm(st))))
+            runs[name] = (norm(snap), [(e.index, e.term, norm(e.command))
+                                       for e in entries],
+                          norm(state), seen)
+        assert runs["port"] == runs["ref"], node
+        assert runs["port"][0] is not None and runs["port"][1]

@@ -540,6 +540,33 @@ def test_commits_freeze_when_wal_dies(tmp_path):
     eng.close()
 
 
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_backpressure_waits_out_a_supervised_wal_restart(tmp_path):
+    """A shard WAL that dies while steps wait on backpressure, with the
+    shard supervisor on, is waited out until the supervisor's restart
+    (held back here so the wait sees it dead); the reference raises
+    WalDown there.  The resent blocks confirm and every step commits."""
+    eng = make_engine(tmp_path, max_pending=2)
+    drive(eng, 4)
+    settle(eng, 5)
+    before = eng.committed_total()
+    wal = eng._dur.wal
+    restart = wal.restart
+
+    def late_restart():
+        time.sleep(0.3)
+        restart()
+    wal.restart = late_restart
+    wal.kill()
+    drive(eng, 6)
+    assert wal.generation == 1
+    settle(eng, 10)
+    assert eng.committed_total() == before + 6 * N * 4
+    assert (leader_commits(eng) <= eng._dur.confirm_upto).all()
+    eng.close()
+
+
 def test_checkpoint_prunes_wal_files(tmp_path):
     eng = make_engine(tmp_path)
     drive(eng, 8)

@@ -48,7 +48,8 @@ def test_port_files_found():
                  ("models", "queue.py"), ("placement", "table.py"),
                  ("placement", "supervisor.py"), ("placement", "host.py"),
                  ("placement", "fabric.py"), ("placement", "soak.py"),
-                 ("placement", "__init__.py")):
+                 ("placement", "__init__.py"), ("transport", "tcp.py"),
+                 ("models", "fifo_client.py"), ("dbg.py",)):
         assert any(f.endswith(os.path.join(*tail)) for f in files), tail
 
 
@@ -73,7 +74,9 @@ def test_importing_the_port_loads_no_jax():
             "ra_tpu_torch.system, ra_tpu_torch.api, ra_tpu_torch.machines, "
             "ra_tpu_torch.machine_ets, ra_tpu_torch.directory, "
             "ra_tpu_torch.codec, ra_tpu_torch.transport.rpc, "
-            "ra_tpu_torch.placement, ra_tpu_torch.utils\n"
+            "ra_tpu_torch.placement, ra_tpu_torch.utils, "
+            "ra_tpu_torch.transport.tcp, ra_tpu_torch.models.fifo_client, "
+            "ra_tpu_torch.dbg\n"
             "ra_tpu_torch.LockstepEngine, ra_tpu_torch.open_engine\n"
             "ra_tpu_torch.RaNode, ra_tpu_torch.RaSystem, ra_tpu_torch.aux, "
             "ra_tpu_torch.start_cluster, ra_tpu_torch.KvMachine\n"
@@ -103,3 +106,20 @@ def test_import_alone_loads_only_the_package_file():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_tcp_frames_load_through_convert():
+    """The TCP receive path unpickles every frame through
+    ``convert.loads`` (so a reference process's frame reads as the port's
+    classes); no plain ``pickle.load``/``loads`` is left in it."""
+    path = os.path.join(REPO, "ra_tpu_torch", "transport", "tcp.py")
+    calls = [(n.func.value.id, n.func.attr)
+             for n in ast.walk(ast.parse(open(path).read(), path))
+             if isinstance(n, ast.Call) and
+             isinstance(n.func, ast.Attribute) and
+             isinstance(n.func.value, ast.Name)]
+    assert not [c for c in calls if c[0] == "pickle" and
+                c[1] in ("load", "loads")], calls
+    src = open(path).read()
+    assert "from ..convert import loads as _wire_loads" in src
+    assert src.count("_wire_loads(frame[1:])") == 6

@@ -397,6 +397,23 @@ def test_queries_match_reference(name):
                       ref_m.jit_query(jnp.asarray(q), rs), "jit_query")
 
 
+def test_ttl_query_live_matches_reference():
+    """``query_live`` (the TTL-KV host query fun) on every lane's replica
+    of an evolved state, expired and wrapped deadlines included."""
+    from ra_tpu.models.ttl_kv import query_live as ref_query_live
+    from ra_tpu_torch.models.ttl_kv import query_live
+    _ref_m, _port_m, rs, ps, _rng = evolved("ttl_kv", steps=24, seed=6)
+    seen = set()
+    for lane in range(N):
+        for member in range(ps["vals"].shape[1]):
+            got = query_live({k: v[lane, member] for k, v in ps.items()})
+            want = ref_query_live({k: v[lane, member]
+                                   for k, v in rs.items()})
+            assert got == want, (lane, member)
+            seen.add(len(got))
+    assert len(seen) > 1
+
+
 HOST_COMMANDS = [
     ("put", 1, 5), ("put", 3, -1), ("put", 2, None), ("put", 1, 2, 7),
     ("put", 1, 2 ** 31 - 1), ("put", 1, 2 ** 31), ("put", -2 ** 31 - 1, 1),

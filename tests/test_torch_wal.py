@@ -28,6 +28,7 @@ from ra_tpu_torch import blackbox, metrics, native, trace
 from ra_tpu_torch.engine.durable import open_engine
 from ra_tpu_torch.log import Wal, WalDown, faults, scan_wal_file
 from ra_tpu_torch.log.faults import DiskFaultPlan, DiskFaultSpec
+from ra_tpu_torch.log.wal import MAX_POISON_STREAK
 from ra_tpu_torch.models import CounterMachine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -79,6 +80,32 @@ def test_wal_files_scan_equal_both_ways(tmp_path, writer):
     assert sorted(got) == ["a", "b"]
     assert got["a"][5] == (2, b"a-overwrite") and 7 not in got["a"]
     assert got["b"][8] == (2, b"B8")
+
+
+@pytest.mark.parametrize("torn", [2, 3])
+def test_wal_open_rolls_past_a_torn_magic_write(tmp_path, torn):
+    """A torn write of a fresh file's magic unlinks that file and opens
+    the next, up to MAX_POISON_STREAK files (the reference raises at the
+    first): the WAL then takes writes that scan back whole."""
+    faults.install_plan(DiskFaultPlan(seed=0, by_class={
+        "wal": DiskFaultSpec(short_write=1.0, limit=torn)}))
+    try:
+        if torn >= MAX_POISON_STREAK:
+            with pytest.raises(OSError, match="torn"):
+                Wal(str(tmp_path), sync_mode=0)
+            return
+        wal = Wal(str(tmp_path), sync_mode=0)
+    finally:
+        faults.clear_plan()
+    wal_dir = str(tmp_path / "wal")
+    assert os.listdir(wal_dir) == [f"{torn + 1:08d}.wal"]
+    wal.register("a", lambda uid, lo, hi, term: None)
+    for i in range(1, 4):
+        wal.write("a", i, 1, b"a%d" % i)
+    wal.flush()
+    wal.close()
+    assert scan_dir(scan_wal_file, wal_dir) == {
+        "a": {i: (1, b"a%d" % i) for i in range(1, 4)}}
 
 
 def test_engine_wal_written_by_either_scans_equal(tmp_path):

@@ -30,6 +30,7 @@ from ra_tpu.wire import DedupCounterMachine as RefDedup
 from ra_tpu.wire import LoopbackFleet as RefFleet
 from ra_tpu.wire import WireListener as RefListener
 from ra_tpu.wire import framing as ref_framing
+from ra_tpu.wire.soak import ladder_main as ref_ladder_main
 from ra_tpu.wire.soak import run_wire_soak as ref_run_wire_soak
 from ra_tpu_torch.convert import state_to_numpy
 from ra_tpu_torch.engine import driver as port_driver
@@ -38,7 +39,7 @@ from ra_tpu_torch.engine.durable import open_engine
 from ra_tpu_torch.ingress import IngressPlane
 from ra_tpu_torch.wire import (OK, SHED, DedupCounterMachine, LoopbackFleet,
                                WireClient, WireListener, framing)
-from ra_tpu_torch.wire.soak import run_wire_soak
+from ra_tpu_torch.wire.soak import ladder_main, run_wire_soak
 from test_torch_engine import assert_same, assert_same_arrays, ref_arrays
 
 CPU = "cpu"
@@ -468,6 +469,24 @@ def test_wire_soak_cpu_scale_matches_reference(tmp_path, dispatch_barrier,
         {k: v for k, v in want.items() if k not in _TIMED}
     assert_same_arrays(dispatch_barrier["port"], dispatch_barrier["ref"],
                        "soak final state")
+
+
+def test_ladder_main_smallest_rung_matches_reference():
+    """``ladder_main`` on one rung of 256 connections (20,000 ops a wave,
+    as the ladder sizes it, over 2 waves): its row's exactly-once counts
+    equal the reference ladder's with the same seed, and the row carries
+    the port's host stamp."""
+    kw = dict(socket_conns=0, lanes=64, waves=2, cmds=8, superstep_k=2,
+              storm_wave=1, tenants=4)
+    (want,) = ref_ladder_main(5, [256], **kw)
+    (got,) = ladder_main(5, [256], device=CPU, **kw)
+    assert got["rung"] == want["rung"] == "C256"
+    assert got["host"]["device_name"] == CPU and "torch_version" in \
+        got["host"] and "cpu_count" in got["host"]
+    skip = _TIMED | {"host"}
+    assert {k: v for k, v in got.items() if k not in skip} == \
+        {k: v for k, v in want.items() if k not in skip}
+    assert got["ops"] > 0 and got["storm_requeued"] > 0
 
 
 def test_wire_soak_with_sockets_and_disk_faults(tmp_path):
