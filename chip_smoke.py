@@ -236,6 +236,19 @@ non-zero (there is no CPU path and no fallback to a plain version):
              3 and adopted by B: the oracle over both engines, recovery
              seconds, counters, client rates around the kill, the idle
              share of the last two waves
+  geo_parity the geo soak (run_geo_soak: four OS processes over TCP, the
+             far table members behind an 80-150 ms latency-domain matrix,
+             a delay-only episode, engine child A SIGKILL'd and adopted by
+             B) at the reference's defaults (16 lanes, 24 sessions an
+             engine, 5 waves of 300), once with the engine children's
+             engines on the card and once on the CPU: rows equal on the
+             oracle's counts, ops, sessions, lanes, migrations, downs and
+             the domain matrix; each child's commit_phase launches above
+             0 on the card and 0 on the CPU
+  geo_path   the geo soak on the card at placement_path's host size:
+             1,024 lanes and 2,048 sessions an engine, 5 waves of 5,000
+             ops: recovery seconds, ops a second, the detector's counts,
+             launches in the parent and both children
 
 The fold_kernels phase also holds the stream decoder (random, append-only,
 int32-edge and invalid-op windows, a ring of 5 and one of 30,000), and a
@@ -246,7 +259,9 @@ stream and the dedup counter.
 then the kernels summary line (launches on every path, each counted from
 0 just before it: main, superstep, durable, fifo, kv, stream, wire, tune,
 reads, mesh_parity, mesh_path, classic_parity, classic_path,
-tcp_parity, tcp_path, placement_parity and placement_path; "launches" is
+tcp_parity, tcp_path, placement_parity, placement_path, geo_parity and
+geo_path, the last two summed over the parent and the engine children;
+"launches" is
 the count on the kernel's own path), preceded by the script's whole
 seconds ("total"), then the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -5169,6 +5184,89 @@ def phase_placement_path(dev, card: str, waves: int = 8,
     return launches
 
 
+# -- the geo soak across OS processes: geo_parity and geo_path --------------
+
+def geo_checked(phase: str, dev, **kw) -> tuple:
+    """``run_geo_soak`` (its own oracle raises) on ``dev``, with the row's
+    exactly-once counts and the failover's shape held here too; returns
+    the row and each kernel's launches in the parent (counted from 0
+    here) and both engine children together."""
+    from ra_tpu_torch.placement import run_geo_soak
+    mods = kernel_modules(zero=True)
+    row = run_geo_soak(0, device=dev, **kw)
+    got = {k: row[k] for k in ("geo_lost_acked", "geo_double_applied",
+                                "geo_false_migrations")}
+    if got != dict.fromkeys(got, 0) or row["detector"]["downs"] != 1 or \
+            row["migrations"] < 1:
+        raise AssertionError(f"{phase}: {got}, detector {row['detector']}, "
+                             f"migrations {row['migrations']}")
+    children = row["engine_launches"].values()
+    return row, {name: m.LAUNCHES + sum(c[name] for c in children)
+                 for name, m in mods.items()}
+
+
+def phase_geo_parity(dev) -> dict:
+    """The geo soak at the reference's defaults with the engine children
+    on the card and on the CPU: equal rows, and the commit phase launched
+    in each card child and in no CPU child."""
+    t0 = time.perf_counter()
+    rows, launches = {}, {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        rows[name], launches[name] = geo_checked(
+            "geo_parity", device, data_dir=str(WAL_ROOT / "geo" / name))
+    keys = ("geo_lost_acked", "geo_double_applied", "geo_false_migrations",
+            "ops", "sessions", "lanes", "migrations", "domain_matrix")
+    pick = {name: ({k: r[k] for k in keys}, r["detector"]["downs"])
+            for name, r in rows.items()}
+    per_child = {name: [c["commit_phase"]
+                        for c in r["engine_launches"].values()]
+                 for name, r in rows.items()}
+    if pick["card"] != pick["cpu"] or min(per_child["card"]) == 0 or \
+            max(per_child["cpu"]) != 0 or launches["card"]["slot_fold"] or \
+            launches["card"]["fifo_fold"] or \
+            launches["card"]["evaluate_quorum"]:
+        raise AssertionError(f"geo_parity: {pick}, launches {launches}, "
+                             f"commit_phase a child {per_child}")
+    shutil.rmtree(WAL_ROOT / "geo", ignore_errors=True)
+    emit({"phase": "geo_parity", "seconds": time.perf_counter() - t0,
+          "rows": {name: {k: r[k] for k in keys + (
+              "geo_failover_recovery_s", "detector", "elapsed_s",
+              "rehome_follows", "probe_replies", "engine_launches")}
+              for name, r in rows.items()},
+          "launches": launches})
+    return {name: launches["card"][name] + launches["cpu"][name]
+            for name in launches["card"]}
+
+
+def phase_geo_path(dev, card: str, sessions: int = 2048,
+                   wave_ops: int = 5000) -> dict:
+    """The geo soak on the card at placement_path's host size: 1,024 lanes
+    and 2,048 sessions an engine, 5 waves of 5,000 ops."""
+    t0 = time.perf_counter()
+    row, launches = geo_checked(
+        "geo_path", dev, sessions=sessions, lanes=1024, waves=5,
+        wave_ops=wave_ops, data_dir=str(WAL_ROOT / "geo" / "path"))
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(WAL_ROOT / "geo", ignore_errors=True)
+    if launches["commit_phase"] == 0 or launches["slot_fold"] or \
+            launches["fifo_fold"] or launches["evaluate_quorum"]:
+        raise AssertionError(f"geo_path: launches {launches}")
+    reduced = {k: [full, v] for k, full, v in (
+        ("sessions", 2048, sessions), ("wave_ops", 5000, wave_ops))
+        if full != v}
+    emit({"phase": "geo_path", "nvidia_smi": card, "seconds": seconds,
+          "reduced": reduced,
+          "geo_failover_recovery_s": row["geo_failover_recovery_s"],
+          "ops_per_s": row["ops"] / row["elapsed_s"],
+          **{k: row[k] for k in (
+              "geo_lost_acked", "geo_double_applied", "geo_false_migrations",
+              "migrations", "detector", "stale_probe_drops", "probe_replies",
+              "rehome_follows", "ops", "sessions", "lanes", "elapsed_s",
+              "wal_shards", "engine_launches", "host")},
+          "launches": launches})
+    return launches
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of ra_tpu_torch "
@@ -5253,6 +5351,8 @@ def main() -> int:
         placement_parity_launches = phase_placement_parity(dev,
                                                            state_to_numpy)
         placement_path_launches = phase_placement_path(dev, card)
+        geo_parity_launches = phase_geo_parity(dev)
+        geo_path_launches = phase_geo_path(dev, card)
     finally:
         shutil.rmtree(WAL_ROOT, ignore_errors=True)
     # launches of each kernel on each path, each counted from 0 just
@@ -5283,6 +5383,8 @@ def main() -> int:
         k["launches_tcp_path"] = tcp_path_launches[name]
         k["launches_placement_parity"] = placement_parity_launches[name]
         k["launches_placement_path"] = placement_path_launches[name]
+        k["launches_geo_parity"] = geo_parity_launches[name]
+        k["launches_geo_path"] = geo_path_launches[name]
         if name in folds:
             k["launches"] = folds[name]["host"][name]
             k["executions_profiled"] = folds[name]["profiled_executions"]

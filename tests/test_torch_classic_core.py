@@ -489,9 +489,13 @@ def test_reference_fallback_pickles_read_through_convert():
 
     from ra_tpu.placement.geo import run_geo_soak
     from ra_tpu.transport.tcp import TcpRouter
+    from ra_tpu.utils.jaxenv import force_platform_from_env
+    from ra_tpu_torch.placement import geo as port_geo
     from ra_tpu_torch.transport import tcp as port_tcp
-    with pytest.raises(pickle.UnpicklingError, match="ra_tpu.placement.geo"):
-        convert.loads(pickle.dumps(run_geo_soak))
+    with pytest.raises(pickle.UnpicklingError,
+                       match="ra_tpu.utils.jaxenv.force_platform_from_env"):
+        convert.loads(pickle.dumps(force_platform_from_env))
+    assert convert.loads(pickle.dumps(run_geo_soak)) is port_geo.run_geo_soak
     # a ported reference class reads as the port's
     assert convert.loads(pickle.dumps(TcpRouter)) is port_tcp.TcpRouter
     arrays = {"mac": jnp.asarray([7, -2 ** 31, 2 ** 31 - 1], jnp.int32),

@@ -48,7 +48,8 @@ def test_port_files_found():
                  ("models", "queue.py"), ("placement", "table.py"),
                  ("placement", "supervisor.py"), ("placement", "host.py"),
                  ("placement", "fabric.py"), ("placement", "soak.py"),
-                 ("placement", "__init__.py"), ("transport", "tcp.py"),
+                 ("placement", "__init__.py"), ("placement", "geo.py"),
+                 ("transport", "tcp.py"),
                  ("models", "fifo_client.py"), ("dbg.py",)):
         assert any(f.endswith(os.path.join(*tail)) for f in files), tail
 
@@ -76,7 +77,7 @@ def test_importing_the_port_loads_no_jax():
             "ra_tpu_torch.codec, ra_tpu_torch.transport.rpc, "
             "ra_tpu_torch.placement, ra_tpu_torch.utils, "
             "ra_tpu_torch.transport.tcp, ra_tpu_torch.models.fifo_client, "
-            "ra_tpu_torch.dbg\n"
+            "ra_tpu_torch.dbg, ra_tpu_torch.placement.geo\n"
             "ra_tpu_torch.LockstepEngine, ra_tpu_torch.open_engine\n"
             "ra_tpu_torch.RaNode, ra_tpu_torch.RaSystem, ra_tpu_torch.aux, "
             "ra_tpu_torch.start_cluster, ra_tpu_torch.KvMachine\n"

@@ -2,7 +2,9 @@
 file imports neither JAX nor the reference): the reference test's size,
 both hosts and the adopted victim's recovery on the card, held to the
 soak's exactly-once oracle.  ``tests/test_torch_placement.py`` holds the
-CPU run against the reference's soak.
+CPU run against the reference's soak.  The geo soak (four OS processes,
+the engine children's engines on the card) is held against its own CPU
+run here; ``tests/test_torch_geo.py`` holds that against the reference.
 
 The soak's disk-fault run is held here for the port alone, on the CPU
 and on the card: a torn WAL magic at the adopt and a shard WAL dying
@@ -11,7 +13,7 @@ both."""
 import pytest
 import torch
 
-from ra_tpu_torch.placement import run_failover_soak
+from ra_tpu_torch.placement import run_failover_soak, run_geo_soak
 
 SMALL = dict(conns=4, sessions_per_conn=2, lanes=8, waves=4, wave_ops=200,
              kill_wave=2)
@@ -67,3 +69,24 @@ def test_failover_soak_under_disk_faults_on_card(tmp_path):
         except Exception as exc:  # noqa: BLE001 — named per seed below
             failed[seed] = repr(exc)[:200]
     assert not failed, failed
+
+
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+@pytest.mark.cuda
+def test_geo_soak_on_card_matches_cpu(tmp_path):
+    """The geo soak at the reference's defaults with the engine children
+    on the card equals its CPU run on the oracle's counts and the
+    failover's shape; each engine child launched the commit phase."""
+    from ra_tpu_torch.ops import _build
+    dev = card()
+    _build.build_all()      # one build before two children load it
+    rows = {d: run_geo_soak(0, data_dir=str(tmp_path / str(d)), device=d)
+            for d in (dev, "cpu")}
+    keys = ("geo_lost_acked", "geo_double_applied", "geo_false_migrations",
+            "ops", "sessions", "lanes", "migrations", "domain_matrix")
+    got = {d: ({k: r[k] for k in keys}, r["detector"]["downs"])
+           for d, r in rows.items()}
+    assert got[dev] == got["cpu"]
+    assert all(n["commit_phase"] > 0
+               for n in rows[dev]["engine_launches"].values())
