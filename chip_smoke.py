@@ -10,11 +10,12 @@ non-zero (there is no CPU path and no fallback to a plain version):
   build      nvcc builds every kernel of ra_tpu_torch/ops/csrc for sm_90a
   kernels    each kernel against its plain torch version on the card at
              the main path's shape and more, exactly: the commit quorum
-             (evaluate_quorum, the public API's kernel) and the fused
-             commit phase (commit_phase, the step's kernel, every output
-             and dtype, both block sizes); kernel and plain version
-             timed with CUDA events, per call (host launch included) and
-             back to back in a CUDA graph (device only)
+             (evaluate_quorum, the public API's kernel; ragged 64-lane
+             blocks, P = 1..16) and the fused commit phase (commit_phase,
+             the step's kernel, every output and dtype); kernel and plain
+             version timed with CUDA events, per call (host launch
+             included) and back to back in a CUDA graph (device only),
+             beside an empty kernel at the kernel's grid (launch floor)
   fold_kernels
              the two in-order fold kernels (slot_fold for registers, KV
              and TTL-KV; fifo_fold under both overflow policies) against
@@ -22,19 +23,20 @@ non-zero (there is no CPU path and no fallback to a plain version):
              the card, over three chained windows of every op,
              out-of-range keys, negative values and int32 overflow: at
              the paths' full widths and at ragged shapes (N not a
-             multiple of the block, P = 1, 3, 7, 16, A = 1, A > Q); for
+             multiple of the block, P = 1, 3, 5, 7, 16, A = 1, A > Q,
+             all-masked and one-command stream windows, 9 groups); for
              the FIFO also the hard windows (fifo_hard_state: full ready
              windows, several rows requeued at once, heads and tickets
              at the int32 edges, equal ranks) with Q = 12, group widths
              8, 16 and 32 and a ring of 5,000 (past 48 KB a block), and
              the consumer mix's window at full ready depth; a strided
-             mask; each decoder timed at its
-             path's width, a call and back to back, beside its bytes
-             bound and the plain version, with the same launch's state
-             load and store alone and its command stream alone (what
-             holds it); and on the paths' bench windows the vectorised
-             fast fold (the reference's branch there, which the card
-             does not run) timed against the kernel, and equal to it
+             mask; each decoder timed at its path's width, a call and
+             back to back, beside its bytes bound and the plain version,
+             with the same launch's state load and store alone and its
+             command stream alone (what holds it) and the launch floor;
+             and on the paths' bench windows the vectorised fast fold
+             (the reference's branch there, which the card does not run)
+             timed against the kernel, and equal to it
   parity     a seeded 64-step schedule (failures, elections with ties,
              recovery, membership, read batches) on a 1,024 x 5 engine,
              once on cuda and once on cpu: every LaneState leaf and aux
@@ -269,6 +271,7 @@ seconds ("total"), then the nvidia-smi line, and last
 from __future__ import annotations
 
 import collections
+import ctypes
 import functools
 import json
 import os
@@ -378,9 +381,62 @@ def bound(n_bytes: int, n_ops: int) -> tuple:
         "bytes" if t_bytes >= t_ops else "operations"
 
 
+def device_sums(prof, kernel: str = "commit_phase_kernel") -> dict:
+    """A profiler window's device ms by group (``kernels``, ``copies``,
+    ``transfers``: step_profile.device_rows), and the executions and ms
+    of the kernels whose name holds ``kernel``; ``rows`` the groups."""
+    from ra_tpu_torch.step_profile import device_rows
+    rows = device_rows(prof)
+    hit = [e for e in rows["kernels"] if kernel in e.key]
+    return {**{g: sum(e.self_device_time_total for e in r) / 1e3
+               for g, r in rows.items()}, "rows": rows,
+            "executions": sum(e.count for e in hit),
+            "hit_ms": sum(e.self_device_time_total for e in hit) / 1e3}
+
+
+def launch_floor_ms(blocks: int, threads: int) -> float:
+    """Back to back time of an empty kernel of ``blocks`` x ``threads``
+    (``ra_empty_launch``, csrc/quorum.cu) in a CUDA graph, as ``graph_ms``
+    times the kernels: the floor under a kernel of that grid."""
+    from ra_tpu_torch.ops import _build
+    fn = _build.kernel("quorum", "ra_empty_launch",
+                       [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+    def launch():
+        if fn(blocks, threads, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("the empty kernel did not launch")
+    return graph_ms(launch)
+
+
+def kernel_row(name: str, source: str, checks: list, shape: list, call,
+               plain, n_bytes: int, n_ops: int, grid: tuple,
+               **extra) -> dict:
+    """A per-lane kernel timed beside its plain version (a call, and back
+    to back in a CUDA graph) and the launch floor at its ``grid``; emits
+    the phase's line and returns the kernel's entry."""
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    t = {"kernel_ms": cuda_ms(call), "plain_ms": cuda_ms(plain),
+         "kernel_graph_ms": graph_ms(call), "plain_graph_ms": graph_ms(plain),
+         "launch_floor_graph_ms": launch_floor_ms(*grid)}
+    emit({"phase": "kernels", "kernel": name, "checks": checks,
+          "shape": shape, **t, "bound_ms": bound_ms, "bytes": n_bytes,
+          "ops": n_ops})
+    return {"name": name, "route": "cuda", "exact": True,
+            "source": f"ra_tpu_torch/ops/csrc/{source}",
+            "replaces": "ra_tpu/ops/pallas_quorum.py:47", **extra,
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "shape": shape, "ms": t["kernel_ms"], **t, "bound_ms": bound_ms,
+            "bytes": n_bytes, "bound_by": bound_by,
+            "library_ms": None}   # no single PyTorch call computes either
+
+
 def phase_quorum_kernel(pq, quorum, dev) -> dict:
+    """The quorum kernel against its plain version, exactly, at ragged
+    edges of its 64-lane blocks and P = 1..16; timed at the main path's."""
     checks = []
-    for n, p in ((10_000, 5), (513, 2), (1024, 7), (4099, 15), (2048, 16)):
+    for n, p in ((10_000, 5), (513, 2), (1024, 7), (4099, 15), (2048, 16),
+                 (63, 5), (64, 5), (65, 5), (10_001, 5), (10_000, 3),
+                 (10_000, 9), (1, 1)):
         args = quorum_inputs(n, p, seed=n + p, device=dev)
         got = pq.evaluate_quorum_cuda(*args)
         want = quorum.evaluate_quorum(*args)
@@ -393,30 +449,13 @@ def phase_quorum_kernel(pq, quorum, dev) -> dict:
                                  f"{(n, p)}: max |err| {err}")
     n, p = 10_000, 5
     args = quorum_inputs(n, p, seed=1, device=dev)
-    kernel_ms = cuda_ms(lambda: pq.evaluate_quorum_cuda(*args))
-    plain_ms = cuda_ms(lambda: quorum.evaluate_quorum(*args))
-    kernel_graph_ms = graph_ms(lambda: pq.evaluate_quorum_cuda(*args))
-    plain_graph_ms = graph_ms(lambda: quorum.evaluate_quorum(*args))
-    n_bytes = n * (4 * p + p + 12)          # each input once, output once
-    n_ops = n * (2 * p * p + 4 * p + 8)     # pairwise count + select + gate
-    bound_ms, bound_by = bound(n_bytes, n_ops)
-    emit({"phase": "kernels", "kernel": "evaluate_quorum", "checks": checks,
-          "shape": [n, p], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-          "kernel_graph_ms": kernel_graph_ms,
-          "plain_graph_ms": plain_graph_ms,
-          "bound_ms": bound_ms, "bytes": n_bytes, "ops": n_ops})
-    return {"name": "evaluate_quorum", "route": "cuda",
-            "source": "ra_tpu_torch/ops/csrc/quorum.cu",
-            "replaces": "ra_tpu/ops/pallas_quorum.py:47",
-            "exact": all(c["exact"] for c in checks),
-            "max_abs_err": max(c["max_abs_err"] for c in checks),
-            "shape": [n, p], "kernel_ms": kernel_ms, "ms": kernel_ms,
-            "plain_ms": plain_ms, "kernel_graph_ms": kernel_graph_ms,
-            "plain_graph_ms": plain_graph_ms, "bound_ms": bound_ms,
-            "bytes": n_bytes, "bound_by": bound_by,
-            # no single PyTorch call computes a voter-masked median with
-            # the term gate
-            "library_ms": None}
+    return kernel_row(
+        "evaluate_quorum", "quorum.cu", checks, [n, p],
+        lambda: pq.evaluate_quorum_cuda(*args),
+        lambda: quorum.evaluate_quorum(*args),
+        n * (4 * p + p + 12),         # each input once, output once
+        n * (2 * p * p + 4 * p + 8),  # pairwise count + select + gate
+        (-(-n // 64), 64))
 
 
 def phase_commit_phase_kernel(cpm, dev) -> dict:
@@ -447,35 +486,17 @@ def phase_commit_phase_kernel(cpm, dev) -> dict:
     args = tuple(torch.from_numpy(x).to(dev)
                  for x in cpm.sample_inputs(n, p, seed=1, Kr=kr))
     kw = dict(lease_ttl=ttl, Kr=kr, supports_read=True)
-    kernel_ms = cuda_ms(lambda: cpm.commit_phase_cuda(*args, **kw))
-    plain_ms = cuda_ms(lambda: cpm.commit_phase(*args, **kw))
-    kernel_graph_ms = graph_ms(lambda: cpm.commit_phase_cuda(*args, **kw))
-    plain_graph_ms = graph_ms(lambda: cpm.commit_phase(*args, **kw))
     # each input read once, each output written once: [N,P] 6 int32 and
     # 2 bool in, 4 int32 out; [N] 11 int32 and 3 bool in, 12 int32 and
-    # 2 bool out
-    n_bytes = sum(t.numel() * t.element_size() for t in args) + \
-        n * (4 * 4 * p + 12 * 4 + 2)
-    # two P x P selections, the per-member fold and the lane scalars
-    n_ops = n * (2 * 3 * p * p + 20 * p + 40)
-    bound_ms, bound_by = bound(n_bytes, n_ops)
-    emit({"phase": "kernels", "kernel": "commit_phase", "checks": checks,
-          "shape": [n, p], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-          "kernel_graph_ms": kernel_graph_ms,
-          "plain_graph_ms": plain_graph_ms,
-          "bound_ms": bound_ms, "bytes": n_bytes, "ops": n_ops})
-    return {"name": "commit_phase", "route": "cuda",
-            "source": "ra_tpu_torch/ops/csrc/commit_phase.cu",
-            "replaces": "ra_tpu/ops/pallas_quorum.py:47",
-            "also_replaces": "ra_tpu/engine/lockstep.py:450-535",
-            "exact": True,
-            "max_abs_err": max(c["max_abs_err"] for c in checks),
-            "shape": [n, p], "kernel_ms": kernel_ms, "ms": kernel_ms,
-            "plain_ms": plain_ms, "kernel_graph_ms": kernel_graph_ms,
-            "plain_graph_ms": plain_graph_ms, "bound_ms": bound_ms,
-            "bytes": n_bytes, "bound_by": bound_by,
-            # no single PyTorch call computes the commit phase
-            "library_ms": None}
+    # 2 bool out; two P x P selections, the per-member fold and the lane
+    # scalars
+    return kernel_row(
+        "commit_phase", "commit_phase.cu", checks, [n, p],
+        lambda: cpm.commit_phase_cuda(*args, **kw),
+        lambda: cpm.commit_phase(*args, **kw),
+        sum(t.numel() * t.element_size() for t in args) +
+        n * (4 * 4 * p + 12 * 4 + 2), n * (2 * 3 * p * p + 20 * p + 40),
+        (-(-n // 128), 128), also_replaces="ra_tpu/engine/lockstep.py:450-535")
 
 
 def assert_same(a, b, aux_a, aux_b, what: str, state_to_numpy) -> None:
@@ -566,10 +587,9 @@ def phase_parity(pq, cpm, LockstepEngine, CounterMachine, state_to_numpy,
 
 def phase_main_path(pq, cpm, LockstepEngine, CounterMachine, dev,
                     n_lanes: int = 10_000) -> dict:
-    from ra_tpu_torch.ops import fifo_fold, slot_fold
     N, P, cmds = n_lanes, 5, 128
     warm, timed = 10, 200
-    pq.LAUNCHES = cpm.LAUNCHES = slot_fold.LAUNCHES = fifo_fold.LAUNCHES = 0
+    mods = kernel_modules(zero=True)
     eng = LockstepEngine(CounterMachine(), N, P, ring_capacity=1024,
                          max_step_cmds=128, apply_window=130, write_delay=1,
                          device=dev)
@@ -601,10 +621,7 @@ def phase_main_path(pq, cpm, LockstepEngine, CounterMachine, dev,
     if not ok.all() or not (replies[:, 0] == lead_value[lanes]).all():
         raise AssertionError("read_lanes did not serve the counters")
     torch.cuda.synchronize()
-    launches = {"commit_phase": cpm.LAUNCHES,
-                "evaluate_quorum": pq.LAUNCHES,
-                "slot_fold": slot_fold.LAUNCHES,
-                "fifo_fold": fifo_fold.LAUNCHES}
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
     steps = eng.pipeline_counters["inner_steps"]
     if launches != {"commit_phase": steps, "evaluate_quorum": 0,
                     "slot_fold": 0, "fifo_fold": 0}:
@@ -622,16 +639,19 @@ def phase_main_path(pq, cpm, LockstepEngine, CounterMachine, dev,
     return launches
 
 
+#: superstep's schedule keywords by step()'s names for them
+STEP_KW = {"elect_blk": "elect_mask", "query_blk": "query_mask",
+           "n_read_blk": "n_read", "read_q_blk": "read_q"}
+
+
 def stacked_steps(eng, n_new, pay, **kw) -> dict:
     """K eager ``step()`` calls, the aux stacked as superstep stacks it;
     ``kw`` holds superstep's schedule keywords."""
     from ra_tpu_torch.engine.lockstep import step_watermarks
-    names = {"elect_blk": "elect_mask", "query_blk": "query_mask",
-             "n_read_blk": "n_read", "read_q_blk": "read_q"}
     auxes = []
     for j in range(n_new.shape[0]):
         aux = eng.step(n_new[j], pay[j],
-                       **{names[k]: v[j] for k, v in kw.items()})
+                       **{STEP_KW[k]: v[j] for k, v in kw.items()})
         auxes.append({**aux, **step_watermarks(eng.state)})
     return {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
 
@@ -647,6 +667,23 @@ def assert_arrays(got: dict, want: dict, what: str) -> None:
         if got[k].dtype != want[k].dtype or \
                 not np.array_equal(got[k], want[k]):
             raise AssertionError(f"{what}: {k} differs")
+
+
+def churn(engines, leader, failed: list, rng, N: int, P: int,
+          size: int = 64) -> tuple:
+    """Recover the members of ``failed`` that do not lead now, then fail
+    the leader of ``size / 2`` lanes drawn from ``rng`` and a follower of
+    as many more, on every engine; returns (those lanes, the failed)."""
+    heal = [(lane, slot) for lane, slot in failed if slot != leader[lane]]
+    lanes = rng.choice(N, size=size, replace=False)
+    failed = [(int(n), int(leader[n])) for n in lanes[:size // 2]] + \
+        [(int(n), (int(leader[n]) + 1) % P) for n in lanes[size // 2:]]
+    for e in engines:
+        if heal:
+            e.recover_members([n for n, _ in heal], [s for _, s in heal])
+        for lane, slot in failed:
+            e.fail_member(lane, slot)
+    return lanes, failed
 
 
 def phase_superstep_parity(cpm, LockstepEngine, CounterMachine,
@@ -665,22 +702,8 @@ def phase_superstep_parity(cpm, LockstepEngine, CounterMachine,
         failed, held, clipped = [], None, 0
         dispatches = 5
         for d in range(dispatches):
-            leader = cpu.state.leader_slot.numpy()
-            heal = [(lane, slot) for lane, slot in failed
-                    if slot != leader[lane]]
-            if heal:
-                lanes, slots = zip(*heal)
-                for e in engines:
-                    e.recover_members(list(lanes), list(slots))
-            # fail the leader of 32 lanes, which elect at inner step 3,
-            # and a follower of 32 more
-            lanes = rng.choice(N, size=64, replace=False)
-            failed = [(int(lane), int(leader[lane])) for lane in lanes[:32]]
-            failed += [(int(lane), (int(leader[lane]) + 1) % P)
-                       for lane in lanes[32:]]
-            for e in engines:
-                for lane, slot in failed:
-                    e.fail_member(lane, slot)
+            lanes, failed = churn(engines, cpu.state.leader_slot.numpy(),
+                                  failed, rng, N, P)
             n_new = rng.integers(0, 9, (K, N)).astype(np.int32)
             n_new[:, rng.random(N) < 0.3] = 8        # fill the ring
             pay = rng.integers(-9, 10, (K, N, 8, 1)).astype(np.int32)
@@ -741,14 +764,20 @@ def ledger(devicewatch) -> dict:
     return {site: dict(v) for site, v in devicewatch.WATCH.sites.items()}
 
 
+def counter_blocks(N: int, cmds: int, K: int) -> tuple:
+    """(n_blk, p_blk) of a counter dispatch: ``cmds`` increments of 1 a
+    lane in each of K inner steps."""
+    return (np.broadcast_to(np.full(N, cmds, np.int32), (K, N)),
+            np.broadcast_to(np.ones((N, cmds, 1), np.int32),
+                            (K, N, cmds, 1)))
+
+
 def phase_superstep_path(pq, cpm, LockstepEngine, CounterMachine,
                          DispatchAheadDriver, TelemetrySampler, devicewatch,
                          dev, n_lanes: int = 10_000) -> dict:
-    from ra_tpu_torch.ops import fifo_fold, slot_fold
-    from ra_tpu_torch.step_profile import device_rows
     N, P, cmds, K = n_lanes, 5, 128, 8
     warm, timed, profiled = 2, 25, 3
-    pq.LAUNCHES = cpm.LAUNCHES = slot_fold.LAUNCHES = fifo_fold.LAUNCHES = 0
+    mods = kernel_modules(zero=True)
     torch.cuda.reset_peak_memory_stats()
     eng = LockstepEngine(CounterMachine(), N, P, ring_capacity=1024,
                          max_step_cmds=cmds, apply_window=130, write_delay=1,
@@ -756,9 +785,7 @@ def phase_superstep_path(pq, cpm, LockstepEngine, CounterMachine,
     sampler = TelemetrySampler(eng)
     drv = DispatchAheadDriver(eng, max_in_flight=2)
     # the bench's staged blocks: host numpy, 41 MB of payload a block
-    n_blk = np.broadcast_to(np.full(N, cmds, np.int32), (K, N))
-    p_blk = np.broadcast_to(np.ones((N, cmds, 1), np.int32),
-                            (K, N, cmds, 1))
+    n_blk, p_blk = counter_blocks(N, cmds, K)
     for _ in range(warm):
         drv.submit(n_blk, p_blk)
     drv.drain()
@@ -823,26 +850,19 @@ def phase_superstep_path(pq, cpm, LockstepEngine, CounterMachine,
         drv.drain()
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t1
-    groups = device_rows(prof)
-    rows = groups["kernels"]
-    executions = sum(e.count for e in rows if "commit_phase_kernel" in e.key)
+    sums = device_sums(prof)
+    rows, executions = sums["rows"]["kernels"], sums["executions"]
     # the dispatch stream's busy time (kernels and device-to-device
     # copies); the block's host-to-device copy overlaps it on a copy
     # engine and is reported apart
-    kernel_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    busy_ms = kernel_ms + sum(e.self_device_time_total
-                              for e in groups["copies"]) / 1e3
-    transfer_ms = sum(e.self_device_time_total
-                      for e in groups["transfers"]) / 1e3
+    kernel_ms, transfer_ms = sums["kernels"], sums["transfers"]
+    busy_ms = kernel_ms + sums["copies"]
     if executions != profiled * K:
         raise AssertionError(f"{executions} commit_phase executions in a "
                              f"profiler window of {profiled * K} inner "
                              "steps")
     graph = eng._graphs._graphs[(K, cmds, False, False)]
-    launches = {"commit_phase": cpm.LAUNCHES,
-                "evaluate_quorum": pq.LAUNCHES,
-                "slot_fold": slot_fold.LAUNCHES,
-                "fifo_fold": fifo_fold.LAUNCHES}
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
     # host launches: for each of the two graphs (K and 1) the warm-up
     # before its capture, and the capture
     if graph.captured_launches["commit_phase"] != K or \
@@ -977,20 +997,8 @@ def phase_durable_parity(cpm, CounterMachine, open_engine, state_to_numpy,
         rng = np.random.default_rng(N + P + 1)
         failed, launches0 = [], cpm.LAUNCHES
         for d in range(5):
-            leader = cpu.state.leader_slot.numpy()
-            heal = [(lane, slot) for lane, slot in failed
-                    if slot != leader[lane]]
-            if heal:
-                lanes, slots = zip(*heal)
-                for e in engines:
-                    e.recover_members(list(lanes), list(slots))
-            lanes = rng.choice(N, size=64, replace=False)
-            failed = [(int(lane), int(leader[lane])) for lane in lanes[:32]]
-            failed += [(int(lane), (int(leader[lane]) + 1) % P)
-                       for lane in lanes[32:]]
-            for e in engines:
-                for lane, slot in failed:
-                    e.fail_member(lane, slot)
+            lanes, failed = churn(engines, cpu.state.leader_slot.numpy(),
+                                  failed, rng, N, P)
             n_new = rng.integers(0, 9, (K, N)).astype(np.int32)
             n_new[:, rng.random(N) < 0.3] = 8
             pay = rng.integers(-9, 10, (K, N, 8, 1)).astype(np.int32)
@@ -1083,8 +1091,6 @@ def phase_durable_path(pq, cpm, CounterMachine, DispatchAheadDriver,
                        volatile: dict, n_lanes: int = 10_000) -> dict:
     from ra_tpu_torch.engine.durable import _BLK, _BLK2
     from ra_tpu_torch.log import faults
-    from ra_tpu_torch.ops import fifo_fold, slot_fold
-    from ra_tpu_torch.step_profile import device_rows
     from ra_tpu_torch.wal_probe import fs_info
     N, P, cmds, K = n_lanes, 5, 128, 8
     warm, timed, profiled, sampled, tail = 2, 25, 3, 4, 3
@@ -1095,14 +1101,12 @@ def phase_durable_path(pq, cpm, CounterMachine, DispatchAheadDriver,
     fs = fs_info(str(root))
     kw = dict(wal_shards=shards, sync_mode=1, max_pending=32,
               ring_capacity=1024, max_step_cmds=cmds, apply_window=130)
-    pq.LAUNCHES = cpm.LAUNCHES = slot_fold.LAUNCHES = fifo_fold.LAUNCHES = 0
+    mods = kernel_modules(zero=True)
     torch.cuda.reset_peak_memory_stats()
     eng = open_engine(CounterMachine(), str(root), N, P, device=dev, **kw)
     io_native = faults.IO._base.native      # native library or fallback
     drv = DispatchAheadDriver(eng, max_in_flight=2)
-    n_blk = np.broadcast_to(np.full(N, cmds, np.int32), (K, N))
-    p_blk = np.broadcast_to(np.ones((N, cmds, 1), np.int32),
-                            (K, N, cmds, 1))
+    n_blk, p_blk = counter_blocks(N, cmds, K)
     for _ in range(warm):
         drv.submit(n_blk, p_blk)
     drv.drain()
@@ -1139,13 +1143,9 @@ def phase_durable_path(pq, cpm, CounterMachine, DispatchAheadDriver,
         drv.drain()
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t1
-    groups = device_rows(prof)
-    executions = sum(e.count for e in groups["kernels"]
-                     if "commit_phase_kernel" in e.key)
-    kernel_ms = sum(e.self_device_time_total for e in groups["kernels"]) / 1e3
-    copy_ms = sum(e.self_device_time_total for e in groups["copies"]) / 1e3
-    transfer_ms = sum(e.self_device_time_total
-                      for e in groups["transfers"]) / 1e3
+    sums = device_sums(prof)
+    executions, kernel_ms = sums["executions"], sums["kernels"]
+    copy_ms, transfer_ms = sums["copies"], sums["transfers"]
     if executions != profiled * K:
         raise AssertionError(f"{executions} commit_phase executions in a "
                              f"durable profiler window of {profiled * K} "
@@ -1224,14 +1224,7 @@ def phase_durable_path(pq, cpm, CounterMachine, DispatchAheadDriver,
                   "durable path checkpoint reopen")
     eng.close()
     shutil.rmtree(root, ignore_errors=True)
-    launches = {"commit_phase": cpm.LAUNCHES,
-                "evaluate_quorum": pq.LAUNCHES,
-                "slot_fold": slot_fold.LAUNCHES,
-                "fifo_fold": fifo_fold.LAUNCHES}
-    if launches["commit_phase"] == 0 or any(
-            launches[k] for k in ("evaluate_quorum", "slot_fold",
-                                  "fifo_fold")):
-        raise AssertionError(f"durable path launches {launches}")
+    launches = used_only("durable path", mods, "commit_phase")
     inner = timed * K
     ms = seconds / inner * 1e3
     emit({"phase": "durable_path", "lanes": N, "members": P,
@@ -1334,9 +1327,7 @@ def phase_durable_diagnosis(CounterMachine, DispatchAheadDriver,
     N, P, cmds, K = n_lanes, 5, 128, 8
     warm, timed = 2, 25
     shards = max(1, min(4, (os.cpu_count() or 2) // 2))
-    n_blk = np.broadcast_to(np.full(N, cmds, np.int32), (K, N))
-    p_blk = np.broadcast_to(np.ones((N, cmds, 1), np.int32),
-                            (K, N, cmds, 1))
+    n_blk, p_blk = counter_blocks(N, cmds, K)
     runs = {}
     for sync_mode in (1, 0):
         root = WAL_ROOT / f"diagnosis{sync_mode}"
@@ -1696,18 +1687,21 @@ def phase_fold_kernels(dev) -> list:
         # the stream decoder: random windows of every op (bad groups,
         # negative values, unknown ops), the same from tails and bases at
         # the int32 edges, append-only windows (the reference's fast
-        # fold), a ring that is no power of two, A > Q, and a ring too
-        # wide for a row in shared memory
+        # fold), a ring that is no power of two, A > Q, lane counts that
+        # are no multiple of a block's, 9 groups, and a ring too wide for
+        # a row in shared memory
         "stream": (lambda: StreamMachine(64, 4), "stream", slot_fold,
                    [(10_000, 5, 130), (1_001, 1, 1), (300, 7, 20)], False),
         "stream_edge": (lambda: StreamMachine(64, 4), "stream", slot_fold,
-                        [(10_000, 5, 130), (1_001, 3, 40), (129, 16, 300)],
-                        True),
+                        [(10_000, 5, 130), (1_001, 3, 40), (129, 16, 300),
+                         (1_003, 1, 70), (333, 5, 1), (41, 16, 150)], True),
         "stream_append_only": (lambda: StreamMachine(64, 4), "stream",
                                slot_fold, [(10_000, 5, 130), (300, 7, 200)],
                                "clean"),
         "stream_odd": (lambda: StreamMachine(5, 2), "stream", slot_fold,
-                       [(1_001, 3, 40), (33, 16, 20)], True),
+                       [(1_001, 3, 40), (33, 16, 20), (257, 5, 130)], True),
+        "stream_g9": (lambda: StreamMachine(64, 9), "stream", slot_fold,
+                      [(1_001, 5, 130), (65, 16, 70)], True),
         "stream_wide": (lambda: StreamMachine(30_000, 40), "stream",
                         slot_fold, [(33, 3, 40)], True),
     }
@@ -1743,7 +1737,9 @@ def phase_fold_kernels(dev) -> list:
         """The kernel timed a call and back to back beside its bound and
         the plain version; and what holds it: the same launch with the
         state's load and store alone (one command, masked off) and with
-        the command stream but no op (the whole window masked off)."""
+        the command stream but no op (the whole window masked off); and
+        an empty kernel at the stream decoder's grid (160 threads a 40
+        rows), the launch floor."""
         call = kernel_call(m, kind, meta, cmds, mask, state)
         n, p, a = mask.shape
         n_bytes = fold_bytes(meta, cmds, mask, state, kind)
@@ -1756,10 +1752,13 @@ def phase_fold_kernels(dev) -> list:
                     meta, cmds, mask, state), reps=3, warmup=1),
                 "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": bound_by,
                 "state_only_graph_ms": graph_ms(kernel_call(
-                    m, kind, one, cmds[..., :1, :], off[..., :1], state),
+                    m, kind, one, cmds[:, :1, :1].contiguous().expand(
+                        n, p, 1, -1), off[..., :1].contiguous(), state),
                     reps=50),
                 "no_ops_graph_ms": graph_ms(kernel_call(
-                    m, kind, meta, cmds, off, state), reps=50)}
+                    m, kind, meta, cmds, off, state), reps=50),
+                "launch_floor_graph_ms": launch_floor_ms(-(-n * p // 40),
+                                                         160)}
 
     checks, timed = [], {}
     for case, (make, kind, mod, shapes, hard) in cases.items():
@@ -1797,6 +1796,18 @@ def phase_fold_kernels(dev) -> list:
         _want, err = check(case, m, mod, meta, cmds, mask[..., ::2], state)
         checks.append({"case": case, "shape": [1_001, 3, 40], "windows": 1,
                        "exact": True, "max_abs_err": err})
+    # the stream at the path's width: an all-masked and a one-command
+    # window from the int32 edges
+    m = StreamMachine(64, 4)
+    meta, cmds, mask, state = fold_operands(
+        m, "stream", 10_000, 5, 130, np.random.default_rng(13), dev,
+        hard=True)
+    for case, msk in (("stream_all_masked", torch.zeros_like(mask)),
+                      ("stream_one_command", mask & (torch.arange(
+                          130, device=dev) == 77))):
+        _want, err = check(case, m, slot_fold, meta, cmds, msk, state)
+        checks.append({"case": case, "shape": [10_000, 5, 130],
+                       "windows": 1, "exact": True, "max_abs_err": err})
     # the FIFO's costliest window on its path: the consumer mix at full
     # ready depth, where every settle or return meets 255 ready entries
     m = JitFifoMachine(256, 8, 4)
@@ -2003,20 +2014,8 @@ def phase_machine_parity(LockstepEngine, state_to_numpy, dev) -> None:
         rng = np.random.default_rng(len(name))
         failed, eager_launches = [], []
         for d in range(8):
-            leader = cpu.state.leader_slot.numpy()
-            heal = [(lane, slot) for lane, slot in failed
-                    if slot != leader[lane]]
-            if heal:
-                lanes, slots = zip(*heal)
-                for e in engines:
-                    e.recover_members(list(lanes), list(slots))
-            lanes = rng.choice(N, size=32, replace=False)
-            failed = [(int(lane), int(leader[lane])) for lane in lanes[:16]]
-            failed += [(int(lane), (int(leader[lane]) + 1) % P)
-                       for lane in lanes[16:]]
-            for e in engines:
-                for lane, slot in failed:
-                    e.fail_member(lane, slot)
+            lanes, failed = churn(engines, cpu.state.leader_slot.numpy(),
+                                  failed, rng, N, P, 32)
             n_new = rng.integers(0, kc + 1, (K, N)).astype(np.int32)
             pay = parity_payloads(name, rng, K, N, kc)
             elect = np.zeros((K, N), bool)
@@ -2033,11 +2032,9 @@ def phase_machine_parity(LockstepEngine, state_to_numpy, dev) -> None:
                      rng.integers(-1, 17, (K, N, 4))], -1).astype(np.int32) \
                     if name != "sequential" else \
                     np.zeros((K, N, 4, 1), np.int32)
-            names = {"elect_blk": "elect_mask", "query_blk": "query_mask",
-                     "n_read_blk": "n_read", "read_q_blk": "read_q"}
             auxes = []
             for j in range(K):
-                step_kw = {names[k]: v[j] for k, v in sched.items()}
+                step_kw = {STEP_KW[k]: v[j] for k, v in sched.items()}
                 before = mod.LAUNCHES if mod else 0
                 aux_e = eager.step(n_new[j], pay[j], **step_kw)
                 eager_launches.append((mod.LAUNCHES if mod else 0) - before)
@@ -2213,7 +2210,6 @@ def run_machine_path(phase: str, mix: str, machine, fold: str, blocks,
     each dispatch's observed read outcome and the committed count a lane
     before it.  Returns the launches of every kernel on the path."""
     from ra_tpu_torch.readback import Readback
-    from ra_tpu_torch.step_profile import device_rows
     N, P, cmds, K = n_lanes, 5, 128, 8
     warm, timed, profiled = 2, 25, 3
     mods = kernel_modules(zero=True)
@@ -2267,12 +2263,10 @@ def run_machine_path(phase: str, mix: str, machine, fold: str, blocks,
         drv.drain()
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t1
-    groups = device_rows(prof)
-    fold_rows = [e for e in groups["kernels"] if kernel in e.key]
-    executions = sum(e.count for e in fold_rows)
-    fold_ms = sum(e.self_device_time_total for e in fold_rows) / 1e3
-    kernel_ms = sum(e.self_device_time_total for e in groups["kernels"]) / 1e3
-    copy_ms = sum(e.self_device_time_total for e in groups["copies"]) / 1e3
+    sums = device_sums(prof, kernel)
+    groups, executions, fold_ms = sums["rows"], sums["executions"], \
+        sums["hit_ms"]
+    kernel_ms, copy_ms = sums["kernels"], sums["copies"]
     top: dict = {}                  # device ms by kernel name, summed
     for e in groups["kernels"]:
         name = e.key[:80]
@@ -2764,10 +2758,8 @@ class WaveTrace:
     def busy(self) -> tuple:
         """(window seconds, device-busy seconds, idle share): kernels and
         copies from the profile, against the window's wall time."""
-        from ra_tpu_torch.step_profile import device_rows
-        groups = device_rows(self.prof)
-        busy = sum(e.self_device_time_total for g in ("kernels", "copies")
-                   for e in groups[g]) / 1e6
+        sums = device_sums(self.prof)
+        busy = (sums["kernels"] + sums["copies"]) / 1e3
         wall = self.starts[self.last] - self.starts[self.first]
         return wall, busy, 1.0 - busy / wall
 
@@ -2801,13 +2793,10 @@ def phase_wire_path(dev, n_lanes: int = 1024, waves: int = 12,
                         socket_ops=16, superstep_k=4, cmds=16, wal_shards=2,
                         on_wave=wt)
     seconds = time.perf_counter() - t0
-    launches = {name: mod.LAUNCHES for name, mod in mods.items()}
+    launches = used_only("wire_path", mods, "commit_phase")
     shutil.rmtree(data, ignore_errors=True)
     wave_s = np.diff(wt.starts).tolist()
     traced_s, busy_s, idle = wt.busy()
-    if launches["commit_phase"] == 0 or launches["slot_fold"] or \
-            launches["fifo_fold"] or launches["evaluate_quorum"]:
-        raise AssertionError(f"wire_path: launches {launches}")
     if row["dup_rows_absorbed"] <= 0 or row["storm_requeued"] <= 0:
         raise AssertionError("wire_path: the storm made no duplicate to "
                              "absorb")
@@ -2861,6 +2850,16 @@ def kernel_modules(zero: bool = False) -> dict:
     for m in mods.values() if zero else ():
         m.LAUNCHES = 0
     return mods
+
+
+def used_only(phase: str, mods: dict, *used: str) -> dict:
+    """Every kernel's launches since ``mods`` (the modules, or the counts)
+    were zeroed; raise unless the kernels ``used`` launched and no other
+    did."""
+    launches = {name: getattr(m, "LAUNCHES", m) for name, m in mods.items()}
+    if any((n > 0) != (name in used) for name, n in launches.items()):
+        raise AssertionError(f"{phase} launches {launches}; want {used}")
+    return launches
 
 
 def phase_shares(rates: dict) -> dict:
@@ -3084,7 +3083,6 @@ def tune_loop(dev, wal_dir: str, *, n_lanes: int = 10_000, cmds: int = 128,
     sent_steps[0] += k
     prof_out = {}
     if profile_dir is not None:
-        from ra_tpu_torch.step_profile import device_rows
         torch.cuda.synchronize()
         s0 = sent_steps[0]
         with trace.torch_profile(profile_dir) as prof:
@@ -3096,16 +3094,13 @@ def tune_loop(dev, wal_dir: str, *, n_lanes: int = 10_000, cmds: int = 128,
             traced_s = time.perf_counter() - t1
         k, staged[0] = staged[0], None
         sent_steps[0] += k
-        groups = device_rows(prof)
-        busy_ms = sum(e.self_device_time_total for g in ("kernels", "copies")
-                      for e in groups[g]) / 1e3
+        sums = device_sums(prof)
+        busy_ms = sums["kernels"] + sums["copies"]
         prof_out = {"profiled_k": cur, "profiled_dispatches": 3,
                     "profiled_inner_steps": sent_steps[0] - s0,
                     "traced_s": traced_s, "device_busy_ms": busy_ms,
                     "device_idle_share": 1.0 - busy_ms / (traced_s * 1e3),
-                    "commit_phase_executions": sum(
-                        e.count for e in groups["kernels"]
-                        if "commit_phase_kernel" in e.key)}
+                    "commit_phase_executions": sums["executions"]}
     eng._dur.flush_all()
     settle_steps = settle_durable(eng, cmds)
     sampler.drain()
@@ -3163,10 +3158,7 @@ def phase_tune_path(dev, seconds: float = 30.0, k_hi: int = 64) -> dict:
     t0 = time.perf_counter()
     out = tune_loop(dev, str(WAL_ROOT / "tune"), seconds=seconds, k_hi=k_hi,
                     profile_dir=str(WAL_ROOT / "tune_profile"))
-    launches = {name: m.LAUNCHES for name, m in mods.items()}
-    if launches["commit_phase"] == 0 or launches["evaluate_quorum"] or \
-            launches["slot_fold"] or launches["fifo_fold"]:
-        raise AssertionError(f"tune_path launches {launches}")
+    launches = used_only("tune_path", mods, "commit_phase")
     emit({"phase": "tune_path", "seconds": time.perf_counter() - t0,
           "host_launches": launches, **out})
     return launches
@@ -3450,10 +3442,7 @@ def phase_reads_path(dev) -> dict:
     mods = kernel_modules(zero=True)
     t0 = time.perf_counter()
     out = reads_loop(dev, str(WAL_ROOT / "reads"))
-    launches = {name: m.LAUNCHES for name, m in mods.items()}
-    if launches["commit_phase"] == 0 or launches["slot_fold"] == 0 or \
-            launches["evaluate_quorum"] or launches["fifo_fold"]:
-        raise AssertionError(f"reads_path launches {launches}")
+    launches = used_only("reads_path", mods, "commit_phase", "slot_fold")
     emit({"phase": "reads_path", "seconds": time.perf_counter() - t0,
           "host_launches": launches, **out})
     return launches
@@ -3554,9 +3543,7 @@ def phase_mesh_parity(LockstepEngine, state_to_numpy, dev) -> dict:
                              .__name__, "checks": checks,
                              "devices": [str(d) for d in
                                          mesh.distinct_devices()]})
-    launches = {name: m.LAUNCHES for name, m in mods.items()}
-    if not launches["commit_phase"] or not launches["slot_fold"]:
-        raise AssertionError(f"mesh_parity launches {launches}")
+    launches = used_only("mesh_parity", mods, "commit_phase", "slot_fold")
     emit({"phase": "mesh_parity", "seconds": time.perf_counter() - t0,
           "lanes": N, "cmds_per_step": kc, "superstep_k": [1, 8],
           "runs": rows, "states_equal": True, "host_launches": launches})
@@ -3627,9 +3614,7 @@ def mesh_counter_window(dev, m_ax: int, P: int, *, N: int = 10_000,
                          write_delay=1, device=dev)
     mesh = shard_engine_state(eng, lane_mesh([dev] * 4, member_axis=m_ax))
     drv = mesh_superstep_driver(eng, mesh)
-    n_blk = np.broadcast_to(np.full(N, cmds, np.int32), (K, N))
-    p_blk = np.broadcast_to(np.ones((N, cmds, 1), np.int32),
-                            (K, N, cmds, 1))
+    n_blk, p_blk = counter_blocks(N, cmds, K)
     for _ in range(warm):
         drv.submit(n_blk, p_blk)
     drv.drain()
@@ -3802,9 +3787,7 @@ def mesh_durable_run(dev, wal_dir: str, state_to_numpy, *, N: int = 10_000,
     eng = open_engine(CounterMachine(), wal_dir, N, P, **kw)
     shard_engine_state(eng, mesh)
     drv = mesh_superstep_driver(eng, mesh)
-    n_blk = np.broadcast_to(np.full(N, cmds, np.int32), (K, N))
-    p_blk = np.broadcast_to(np.ones((N, cmds, 1), np.int32),
-                            (K, N, cmds, 1))
+    n_blk, p_blk = counter_blocks(N, cmds, K)
     t0 = time.perf_counter()
     for _ in range(dispatches):
         drv.submit(n_blk, p_blk)
@@ -3869,10 +3852,7 @@ def phase_mesh_path(dev, volatile: dict, state_to_numpy) -> dict:
     for r in rung:
         emit({"phase": "mesh_path_rung", **r})
     durable = mesh_durable_run(dev, str(WAL_ROOT / "mesh"), state_to_numpy)
-    launches = {name: m.LAUNCHES for name, m in mods.items()}
-    if not launches["commit_phase"] or launches["evaluate_quorum"] or \
-            launches["slot_fold"] or launches["fifo_fold"]:
-        raise AssertionError(f"mesh_path launches {launches}")
+    launches = used_only("mesh_path", mods, "commit_phase")
     emit({"phase": "mesh_path", "seconds": time.perf_counter() - t0,
           "durable": durable, "host_launches": launches})
     return launches
@@ -4864,10 +4844,9 @@ def phase_tcp_path(dev, card: str) -> dict:
     finally:
         cl.stop()
         shutil.rmtree(WAL_ROOT / "tcp_path", ignore_errors=True)
-    launches = {name: m.LAUNCHES for name, m in mods.items()}
-    if any(launches.values()) or any(v for m in members.values()
-                                     for v in m.values()):
-        raise AssertionError(f"tcp_path: launches {launches}, {members}")
+    launches = used_only("tcp_path", mods)
+    used_only("tcp_path's members", {f"{k} {n}": v for k, m in
+                                     members.items() for n, v in m.items()})
     emit({"phase": "tcp_path", "seconds": time.perf_counter() - t0,
           "host_launches": launches, "member_launches": members})
     return launches
@@ -5030,10 +5009,9 @@ def phase_tcp_parity(dev) -> dict:
     finally:
         cl.stop()
         shutil.rmtree(root, ignore_errors=True)
-    launches = {name: m.LAUNCHES for name, m in mods.items()}
-    if any(launches.values()) or any(v for m in members.values()
-                                     for v in m.values()):
-        raise AssertionError(f"tcp_parity: launches {launches}, {members}")
+    launches = used_only("tcp_parity", mods)
+    used_only("tcp_parity's members", {f"{k} {n}": v for k, m in
+                                       members.items() for n, v in m.items()})
     emit({"phase": "tcp_parity", "seconds": time.perf_counter() - t0,
           "kv_commands": len(cmds), "kv_applied": runs["tcp"][1][0][2],
           "kv_tcp_cmds_per_s": len(cmds) / kv_s,
@@ -5120,9 +5098,7 @@ def phase_placement_parity(dev, state_to_numpy) -> dict:
                                  f"the card differs from the CPU's "
                                  f"recovery in {bad[:4]}")
     shutil.rmtree(root, ignore_errors=True)
-    launches = {name: m.LAUNCHES for name, m in mods.items()}
-    if launches["commit_phase"] == 0:
-        raise AssertionError(f"placement_parity: launches {launches}")
+    launches = used_only("placement_parity", mods, "commit_phase")
     emit({"phase": "placement_parity", "seconds": time.perf_counter() - t0,
           "size": PLACEMENT_SMALL, "adopted_states_equal": len(compared),
           "rows": {name: {k: row[k] for k in keys + (
@@ -5150,11 +5126,8 @@ def phase_placement_path(dev, card: str, waves: int = 8,
         waves=waves, wave_ops=50_000, kill_wave=kill_wave, wal_shards=2,
         data_dir=str(data), device=dev, on_wave=wt)
     seconds = time.perf_counter() - t0
-    launches = {name: m.LAUNCHES for name, m in mods.items()}
     shutil.rmtree(data, ignore_errors=True)
-    if launches["commit_phase"] == 0 or launches["slot_fold"] or \
-            launches["fifo_fold"] or launches["evaluate_quorum"]:
-        raise AssertionError(f"placement_path: launches {launches}")
+    launches = used_only("placement_path", mods, "commit_phase")
     # (seconds, acked ops) as each wave starts: the rates leave out wave
     # 0 (the first acks) and the traced waves (the profiler's start)
     marks = row["wave_marks"]
@@ -5221,10 +5194,9 @@ def phase_geo_parity(dev) -> dict:
     per_child = {name: [c["commit_phase"]
                         for c in r["engine_launches"].values()]
                  for name, r in rows.items()}
+    used_only("geo_parity", launches["card"], "commit_phase")
     if pick["card"] != pick["cpu"] or min(per_child["card"]) == 0 or \
-            max(per_child["cpu"]) != 0 or launches["card"]["slot_fold"] or \
-            launches["card"]["fifo_fold"] or \
-            launches["card"]["evaluate_quorum"]:
+            max(per_child["cpu"]) != 0:
         raise AssertionError(f"geo_parity: {pick}, launches {launches}, "
                              f"commit_phase a child {per_child}")
     shutil.rmtree(WAL_ROOT / "geo", ignore_errors=True)
@@ -5248,9 +5220,7 @@ def phase_geo_path(dev, card: str, sessions: int = 2048,
         wave_ops=wave_ops, data_dir=str(WAL_ROOT / "geo" / "path"))
     seconds = time.perf_counter() - t0
     shutil.rmtree(WAL_ROOT / "geo", ignore_errors=True)
-    if launches["commit_phase"] == 0 or launches["slot_fold"] or \
-            launches["fifo_fold"] or launches["evaluate_quorum"]:
-        raise AssertionError(f"geo_path: launches {launches}")
+    used_only("geo_path", launches, "commit_phase")
     reduced = {k: [full, v] for k, full, v in (
         ("sessions", 2048, sessions), ("wave_ops", 5000, wave_ops))
         if full != v}
@@ -5313,19 +5283,22 @@ def main() -> int:
     kernels = [phase_quorum_kernel(pq, quorum, dev),
                phase_commit_phase_kernel(cpm, dev)]
     fold_kernels = phase_fold_kernels(dev)
+    # each path's launches of every kernel, counted from 0 just before it
+    paths = {}
     phase_parity(pq, cpm, LockstepEngine, CounterMachine, state_to_numpy,
                  dev)
-    launches = phase_main_path(pq, cpm, LockstepEngine, CounterMachine, dev)
+    paths["main_path"] = phase_main_path(pq, cpm, LockstepEngine,
+                                         CounterMachine, dev)
     phase_superstep_parity(cpm, LockstepEngine, CounterMachine,
                            state_to_numpy, devicewatch, dev)
-    volatile, ss_launches = phase_superstep_path(
+    volatile, paths["superstep_path"] = phase_superstep_path(
         pq, cpm, LockstepEngine, CounterMachine, DispatchAheadDriver,
         TelemetrySampler, devicewatch, dev)
     try:
         phase_wal_disk()
         phase_durable_parity(cpm, CounterMachine, open_engine,
                              state_to_numpy, scan_wal_file, dev)
-        dur_launches = phase_durable_path(
+        paths["durable_path"] = phase_durable_path(
             pq, cpm, CounterMachine, DispatchAheadDriver, open_engine,
             trace, state_to_numpy, dev, volatile)
         phase_durable_diagnosis(CounterMachine, DispatchAheadDriver,
@@ -5333,63 +5306,46 @@ def main() -> int:
     finally:
         shutil.rmtree(WAL_ROOT, ignore_errors=True)
     phase_machine_parity(LockstepEngine, state_to_numpy, dev)
-    fifo_launches = phase_fifo_path(LockstepEngine, DispatchAheadDriver, dev)
-    kv_launches = phase_kv_path(LockstepEngine, DispatchAheadDriver, dev)
-    stream_launches = phase_stream_path(LockstepEngine, DispatchAheadDriver,
-                                        dev, args.seed)
+    paths["fifo_path"] = phase_fifo_path(LockstepEngine, DispatchAheadDriver,
+                                         dev)
+    paths["kv_path"] = phase_kv_path(LockstepEngine, DispatchAheadDriver, dev)
+    paths["stream_path"] = phase_stream_path(
+        LockstepEngine, DispatchAheadDriver, dev, args.seed)
     try:
-        wire_launches = phase_wire_path(dev)
-        tune_launches = phase_tune_path(dev)
-        reads_launches = phase_reads_path(dev)
-        mesh_parity_launches = phase_mesh_parity(LockstepEngine,
+        paths["wire_path"] = phase_wire_path(dev)
+        paths["tune_path"] = phase_tune_path(dev)
+        paths["reads_path"] = phase_reads_path(dev)
+        paths["mesh_parity"] = phase_mesh_parity(LockstepEngine,
                                                  state_to_numpy, dev)
-        mesh_launches = phase_mesh_path(dev, volatile, state_to_numpy)
-        classic_parity_launches = phase_classic_parity(dev)
-        classic_path_launches = phase_classic_path(dev, card)
-        tcp_parity_launches = phase_tcp_parity(dev)
-        tcp_path_launches = phase_tcp_path(dev, card)
-        placement_parity_launches = phase_placement_parity(dev,
+        paths["mesh_path"] = phase_mesh_path(dev, volatile, state_to_numpy)
+        paths["classic_parity"] = phase_classic_parity(dev)
+        paths["classic_path"] = phase_classic_path(dev, card)
+        paths["tcp_parity"] = phase_tcp_parity(dev)
+        paths["tcp_path"] = phase_tcp_path(dev, card)
+        paths["placement_parity"] = phase_placement_parity(dev,
                                                            state_to_numpy)
-        placement_path_launches = phase_placement_path(dev, card)
-        geo_parity_launches = phase_geo_parity(dev)
-        geo_path_launches = phase_geo_path(dev, card)
+        paths["placement_path"] = phase_placement_path(dev, card)
+        paths["geo_parity"] = phase_geo_parity(dev)
+        paths["geo_path"] = phase_geo_path(dev, card)
     finally:
         shutil.rmtree(WAL_ROOT, ignore_errors=True)
-    # launches of each kernel on each path, each counted from 0 just
-    # before its path; "launches" is the count on the kernel's own path
-    # (the main path for the commit phase and the quorum, the fifo path's
-    # consumer mix and the kv path's cas mix for the two folds)
-    folds = {"slot_fold": kv_launches["b_cas"],
-             "fifo_fold": fifo_launches["b_consumer"]}
+    # "launches" is the count on the kernel's own path (the main path for
+    # the commit phase and the quorum, the fifo path's consumer mix and
+    # the kv path's cas mix for the two folds); a machine path's counts
+    # are by mix, the wire path's the host's
+    folds = {"slot_fold": paths["kv_path"]["b_cas"],
+             "fifo_fold": paths["fifo_path"]["b_consumer"]}
     for k in kernels + fold_kernels:
         name = k["name"]
-        k["launches_main_path"] = launches[name]
-        k["launches_superstep_path"] = ss_launches[name]
-        k["launches_durable_path"] = dur_launches[name]
-        k["launches_fifo_path"] = {mix: v["host"][name]
-                                   for mix, v in fifo_launches.items()}
-        k["launches_kv_path"] = {mix: v["host"][name]
-                                 for mix, v in kv_launches.items()}
-        k["launches_stream_path"] = {mix: v["host"][name]
-                                     for mix, v in stream_launches.items()}
-        k["launches_wire_path"] = wire_launches["host"][name]
-        k["launches_tune_path"] = tune_launches[name]
-        k["launches_reads_path"] = reads_launches[name]
-        k["launches_mesh_parity"] = mesh_parity_launches[name]
-        k["launches_mesh_path"] = mesh_launches[name]
-        k["launches_classic_parity"] = classic_parity_launches[name]
-        k["launches_classic_path"] = classic_path_launches[name]
-        k["launches_tcp_parity"] = tcp_parity_launches[name]
-        k["launches_tcp_path"] = tcp_path_launches[name]
-        k["launches_placement_parity"] = placement_parity_launches[name]
-        k["launches_placement_path"] = placement_path_launches[name]
-        k["launches_geo_parity"] = geo_parity_launches[name]
-        k["launches_geo_path"] = geo_path_launches[name]
+        for path, got in paths.items():
+            k[f"launches_{path}"] = got["host"][name] if "host" in got \
+                else got[name] if name in got \
+                else {mix: v["host"][name] for mix, v in got.items()}
         if name in folds:
             k["launches"] = folds[name]["host"][name]
             k["executions_profiled"] = folds[name]["profiled_executions"]
         else:
-            k["launches"] = launches[name]
+            k["launches"] = paths["main_path"][name]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels + fold_kernels})
     print(card, flush=True)

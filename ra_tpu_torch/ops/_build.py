@@ -22,6 +22,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
+_FNS: dict = {}
 
 
 def _nvcc() -> str:
@@ -87,3 +88,24 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _LIBS[name] = lib
     return lib
+
+
+def kernel(name: str, entry: str, argtypes: list, args=None):
+    """``entry`` of csrc/<name>.cu as a ctypes function returning its int
+    (a CUDA error code) and taking ``argtypes``, cached.  With ``args``,
+    the ctypes Structure the entry takes a pointer to, the source's
+    ``<entry>_args_size`` must report that Structure's size."""
+    fn = _FNS.get(entry)
+    if fn is None:
+        lib = load(name)
+        if args is not None:
+            size = getattr(lib, f"{entry}_args_size")
+            size.argtypes, size.restype = [], ctypes.c_int
+            if size() != ctypes.sizeof(args):
+                raise RuntimeError(
+                    f"csrc/{name}.cu takes {size()} bytes of arguments, "
+                    f"the wrapper passes {ctypes.sizeof(args)}")
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _FNS[entry] = fn
+    return fn

@@ -197,26 +197,11 @@ class _Args(ctypes.Structure):
         [("out_" + name, ctypes.c_void_p) for name in CommitPhase._fields]
 
 
-_FN = None
-
-
 def _kernel_fn():
-    global _FN
-    if _FN is None:
-        from . import _build
-        lib = _build.load("commit_phase")
-        size = lib.ra_commit_phase_args_size
-        size.argtypes, size.restype = [], ctypes.c_int
-        if size() != ctypes.sizeof(_Args):
-            raise RuntimeError(
-                f"csrc/commit_phase.cu takes {size()} bytes of pointers, "
-                f"the wrapper passes {ctypes.sizeof(_Args)}")
-        fn = lib.ra_commit_phase
-        fn.argtypes = [ctypes.POINTER(_Args)] + [ctypes.c_int] * 5 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+    from . import _build
+    return _build.kernel("commit_phase", "ra_commit_phase", [
+        ctypes.POINTER(_Args)] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        _Args)
 
 
 def commit_phase_cuda(*args, lease_ttl: int, Kr: int,

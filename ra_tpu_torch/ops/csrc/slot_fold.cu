@@ -22,9 +22,11 @@
 // 64 and 4 cursors (2 x 14.0 MB of state with tail and base), its 3-wide
 // commands (15.6 MB) and the mask make it 50.1 MB, 0.015 ms.
 //
-// Design: one thread a replica row (lane n, member p) walks its window in
-// order; a command is a few integer ops on one cell, so lanes of a warp
-// sharing a row would mostly idle.
+// Design of the registers, KV and TTL-KV decoders (and the stream's where
+// its own kernel, below, does not take the operands): one thread a
+// replica row (lane n, member p) walks its window in order; a command is
+// a few integer ops on one cell, so lanes of a warp sharing a row would
+// mostly idle.
 //  * The row's cell files live in shared memory while it folds, read from
 //    device memory once (cp.async, every copy in flight at once) and
 //    written once, with no copy pass from input to output.  They are
@@ -42,8 +44,7 @@
 //    of the engine's expanded [N,P,A,C] view (member stride 0), so the P
 //    members of a lane share one copy in L1; a row loads the next 8
 //    commands (one 16-byte load each where the layout allows, and TTL-KV's
-//    index) while it folds the 8 before.  The stream's commands are
-//    3-wide (C = 3), read a field at a time.
+//    index) while it folds the 8 before.
 //  * Waves: R is the one of 128, 96, 64, 32 that keeps the most rows on an
 //    SM, cells and mask counted.  KV at 64 cells and A = 130 takes R = 96
 //    (37 KB a block, 6 blocks, 576 rows an SM): 10,000 x 5 rows fit in one
@@ -53,6 +54,40 @@
 //    slower route with the same results: the block copies its rows to
 //    their output rows, and each thread folds its row there in device
 //    memory, reading its mask bytes through their strides.
+// The stream decoder has a kernel of its own (stream_slot_fold_kernel),
+// for what held the one-thread walk back: a stream command is 3 ints, so
+// each row loaded its lane's 130 commands field by field through L1, the
+// P rows of a lane each again, masked commands too, and then stepped
+// through a dependent chain of tail, base and cursor 130 times, one
+// thread a row (50,000 threads at 10,000 x 5: 12 warps an SM to hide it).
+//  * Staged once: a block takes whole lanes (about 20 rows).  Its rows'
+//    rings, its lanes' [A,3] windows and its rows' mask bytes are each one
+//    contiguous run in device memory; one thread copies the aligned middle
+//    of each with a bulk copy (TMA, cp.async.bulk) completing on an
+//    mbarrier, the block the ragged ends.  The P rows of a lane then read
+//    the window from shared memory, and no command costs a device-memory
+//    load.
+//  * Folded by maps that compose: eight threads a row, each folding an
+//    eighth of the window.  The tail advances by the count of applied
+//    appends (a scan over the eight gives each its start); an append
+//    writes slot floor_mod(tail, Q), so where no two of the last Q appends
+//    share a slot (Q a power of two, or no int32 wrap of the tail) only
+//    those survive, each written once into the staged ring; else one
+//    thread of the row writes every append in order.  The base and each
+//    cursor go through v -> min(max(v, lo), hi) at every applied command
+//    (a commit or truncate clip, then the retention max(base, tail - Q)),
+//    a family closed under composition: each thread composes its eighth's
+//    maps (the cursors' in shared memory, indexed by group), and the
+//    eight compose in order, the base's by shuffles, each cursor's by one
+//    thread of the row; the row's base and cursors take the result once.
+//  * The rings leave with 16-byte stores; tail, base and cursors from the
+//    row's threads.  G is a template bound (4 or 16); more groups, other
+//    strides, or a lane's window too wide for a block's shared memory take
+//    the one-thread kernel above.
+//  * Measured on the H100 (PERF.md): eight threads a row beat four, and
+//    blocks of about 20 rows beat 10 or 40; a persistent variant with two
+//    stages of shared memory, the next block's copies under this one's
+//    fold, was no faster.
 // Integer adds wrap modulo 2^32, as XLA's int32 arithmetic, and the ring
 // slot of an offset is its floor mod Q (jnp.mod), negative offsets too.
 // The kernel allocates nothing, never synchronises the device, and runs on
@@ -69,6 +104,7 @@ constexpr int kSmemPerSm = 233472;   // sm_90: 228 KB of shared memory an SM
 constexpr int kSmemPerBlock = 232448;  // 227 KB a block, by opt-in
 constexpr int kSmemReserved = 1024;    // the runtime's share of a block
 constexpr int kMaxDevices = 64;       // devices a process opts in on
+constexpr int kIntMin = -0x7fffffff - 1, kIntMax = 0x7fffffff;
 enum Kind { kRegisters = 0, kKv = 1, kTtlKv = 2, kStream = 3 };
 
 __device__ __forceinline__ int wrap_add(int a, int b) {
@@ -359,8 +395,333 @@ slot_fold_kernel(const RaSlotFoldArgs a, const int rows_per_block,
   }
 }
 
+// -- the stream decoder's own kernel ----------------------------------------
+
+constexpr int kRowThreads = 8;       // threads that fold one stream row
+constexpr int kStreamRows = 20;      // rows a block, about (whole lanes)
+constexpr int kStreamMaxThreads = 512;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// A run of bytes staged in shared memory at s (s - its start keeps the
+// source's alignment mod 16): the aligned middle [head, head + mid) by one
+// bulk copy (TMA) completing on a barrier, the ragged ends (under 16 bytes
+// each) by plain loads.
+struct Run {
+  unsigned char* s;
+  const unsigned char* g;
+  long long head, mid, len;
+};
+
+__host__ __device__ inline long long round16(long long x) {
+  return (x + 15) / 16 * 16;
+}
+
+// shared bytes a run of `len` takes, its start 16-aligned
+__host__ __device__ inline long long run_room(long long len) {
+  return round16(len + 15);
+}
+
+__device__ __forceinline__ Run plan_run(unsigned char* room, const void* src,
+                                        long long len) {
+  Run r;
+  r.g = reinterpret_cast<const unsigned char*>(src);
+  const int shift = (int)((uintptr_t)r.g & 15);
+  r.s = room + shift;
+  r.len = len;
+  r.head = min((long long)((16 - shift) & 15), len);
+  r.mid = (len - r.head) / 16 * 16;
+  return r;
+}
+
+__device__ __forceinline__ void run_ends(const Run& r) {
+  for (long long e = threadIdx.x; e < r.head; e += blockDim.x)
+    r.s[e] = r.g[e];
+  for (long long e = r.head + r.mid + threadIdx.x; e < r.len;
+       e += blockDim.x)
+    r.s[e] = r.g[e];
+}
+
+// The barrier the block's bulk copies complete on: set up by one thread
+// for one arrival (its own, with the bytes to expect), waited on by all.
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               "fence.mbarrier_init.release.cluster;"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar) {
+  for (unsigned done = 0; !done;)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_u32(bar)) : "memory");
+}
+
+// the run's aligned middle, if any, in one bulk copy (TMA)
+__device__ __forceinline__ void bulk_load(const Run& r, uint64_t* bar) {
+  if (r.mid > 0)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(smem_u32(r.s + r.head)), "l"(r.g + r.head),
+           "r"((unsigned)r.mid), "r"(smem_u32(bar)) : "memory");
+}
+
+// The block's stream rows (whole lanes): rings, cursors, tail and base in,
+// out.  Shared memory holds the barrier, each thread's cursor maps (cursor
+// g of thread t at g * blockDim + t), then the staged runs: the rows'
+// rings, the lanes' [A,3] command windows, the rows' mask bytes.
+template <int GM>
+__global__ void __launch_bounds__(kStreamMaxThreads)
+stream_slot_fold_kernel(const RaSlotFoldArgs a, const int lanes_per_block) {
+  constexpr int T = kRowThreads, CG = (GM + T - 1) / T;
+  extern __shared__ int4 smem4[];
+  unsigned char* const sm = reinterpret_cast<unsigned char*>(smem4);
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(sm);
+  const int nt = blockDim.x, t = threadIdx.x, r = t / T, j = t % T;
+  int2* const cmap = reinterpret_cast<int2*>(sm + 16);
+  const int P = a.p, A = a.a, Q = a.s, G = a.g;
+  const long long n0 = (long long)blockIdx.x * lanes_per_block;
+  const int lanes = (int)min((long long)lanes_per_block, (long long)a.n - n0);
+  const int nrows = lanes * P;
+  const long long row0 = n0 * P;
+  const bool live = r < nrows;
+  const long long row = row0 + r;
+  // the barrier is set up before any thread waits on it; the bulk copies
+  // go out first, the row's scalars and the runs' ends load under them,
+  // and the barrier after the wait shows the ends to every thread
+  if (t == 0) bar_init(bar);
+  __syncthreads();
+  unsigned char* room = sm + 16 + round16(8LL * GM * nt);
+  const Run ring = plan_run(room, a.cells + row0 * Q, 4LL * nrows * Q);
+  room += run_room(ring.len);
+  const Run cmds = plan_run(room, a.cmds + n0 * 3 * A, 12LL * lanes * A);
+  room += run_room(cmds.len);
+  const Run mask = plan_run(room, a.mask + row0 * A, (long long)nrows * A);
+  if (t == 0) {
+    bar_expect(bar, (unsigned)(ring.mid + cmds.mid + mask.mid));
+    bulk_load(ring, bar);
+    bulk_load(cmds, bar);
+    bulk_load(mask, bar);
+  }
+  const int tail0 = live ? a.tail[row] : 0;
+  const int base0 = live && j == 0 ? a.base[row] : 0;
+  int cur0[CG];
+#pragma unroll
+  for (int c = 0; c < CG; ++c)
+    cur0[c] = live && j + c * T < G ? a.cursors[row * G + j + c * T] : 0;
+
+  run_ends(ring);
+  run_ends(cmds);
+  run_ends(mask);
+  bar_wait(bar);
+  __syncthreads();
+
+  int* const buf = reinterpret_cast<int*>(ring.s) + (long long)r * Q;
+  const int* const cmd =
+      reinterpret_cast<const int*>(cmds.s) + (long long)(r / P) * 3 * A;
+  const unsigned char* const m = mask.s + (long long)r * A;
+  // the row's window in T runs, thread j's in order
+  const int per = (A + T - 1) / T;
+  const int i0 = min(A, j * per), i1 = min(A, i0 + per);
+  const unsigned all = 0xffffffffu;
+
+  // appends before thread j's run (a scan over the row's threads), and K
+  int cnt = 0;
+  if (live)
+#pragma unroll 4
+    for (int i = i0; i < i1; ++i)
+      cnt += m[i] && cmd[3 * i] == 1 && cmd[3 * i + 1] >= 0;
+  int inc = cnt;
+#pragma unroll
+  for (int d = 1; d < T; d <<= 1) {
+    const int v = __shfl_up_sync(all, inc, d, T);
+    if (j >= d) inc += v;
+  }
+  const int K = __shfl_sync(all, inc, T - 1, T);
+
+  // Thread j folds its run into maps of the row's state: the base and
+  // each cursor pass through v -> min(max(v, lo), hi) at every applied
+  // command, and those compose to one such map (lo <= hi kept).  An
+  // append writes slot floor_mod(tail, Q); where no two of the last Q
+  // appends share a slot (Q a power of two, or no int32 wrap of the tail)
+  // only those survive, each written once, their slots counted up from
+  // the run's first; else thread 0 writes every append in order below.
+  const bool pow2 = (Q & (Q - 1)) == 0;
+  const bool distinct = pow2 || (long long)tail0 + K - 1 <= 0x7fffffffLL;
+  int tail = wrap_add(tail0, inc - cnt), k = inc - cnt;
+  int slot = pow2 ? tail & (Q - 1) : floor_mod(tail, Q);
+  int bl = kIntMin, bh = kIntMax;
+  for (int c = 0; c < G; ++c) cmap[c * nt + t] = make_int2(kIntMin, kIntMax);
+  if (live) {
+#pragma unroll 2
+    for (int i = i0; i < i1; ++i) {
+      if (!m[i]) continue;
+      const int op = cmd[3 * i], x = cmd[3 * i + 1], y = cmd[3 * i + 2];
+      if (op == 1 && x >= 0) {
+        if (distinct && k >= K - Q) buf[slot] = x;
+        slot = slot + 1 == Q ? 0 : slot + 1;
+        tail = wrap_add(tail, 1);
+        ++k;
+      } else if (op == 2 && x >= 0 && x < G) {
+        int2* const c = cmap + x * nt + t;
+        const int lo = y > 0 ? y : 0;
+        int2 v = *c;
+        v.x = min(max(v.x, lo), tail);
+        v.y = min(max(v.y, lo), tail);
+        *c = v;
+      } else if (op == 3) {
+        const int lo = x > 0 ? x : 0;
+        bl = min(max(bl, lo), tail);
+        bh = min(max(bh, lo), tail);
+      }
+      // retention: v -> max(v, tail - Q)
+      const int keep = wrap_add(tail, -Q);
+      bl = max(bl, keep);
+      bh = max(bh, keep);
+    }
+    if (!distinct && j == 0) {
+      int tl = tail0;
+      for (int i = 0; i < A; ++i)
+        if (m[i] && cmd[3 * i] == 1 && cmd[3 * i + 1] >= 0) {
+          buf[floor_mod(tl, Q)] = cmd[3 * i + 1];
+          tl = wrap_add(tl, 1);
+        }
+    }
+  }
+  // the base maps: thread j's, then j + d's, a tree in order; thread 0
+  // ends with the row's
+#pragma unroll
+  for (int d = 1; d < T; d <<= 1) {
+    const int lo = __shfl_down_sync(all, bl, d, T);
+    const int hi = __shfl_down_sync(all, bh, d, T);
+    if ((j & (2 * d - 1)) == 0) {
+      bl = min(max(bl, lo), hi);
+      bh = min(max(bh, lo), hi);
+    }
+  }
+  __syncwarp();
+  if (live) {
+    if (j == 0) {
+      a.out_tail[row] = wrap_add(tail0, K);
+      a.out_base[row] = min(max(base0, bl), bh);
+    }
+    // cursor j + c T: the row's T threads' maps composed in order
+#pragma unroll
+    for (int c = 0; c < CG; ++c) {
+      const int gc = j + c * T;
+      if (gc >= G) break;
+      int lo = kIntMin, hi = kIntMax;
+      for (int u = 0; u < T; ++u) {
+        const int2 v = cmap[gc * nt + r * T + u];
+        lo = min(max(lo, v.x), v.y);
+        hi = min(max(hi, v.x), v.y);
+      }
+      a.out_cursors[row * G + gc] = min(max(cur0[c], lo), hi);
+    }
+  }
+
+  // the rings leave with 16-byte stores where the output run keeps the
+  // input's alignment
+  __syncthreads();
+  int* const out = a.out_cells + row0 * Q;
+  const int* const sr = reinterpret_cast<const int*>(ring.s);
+  const long long len = (long long)nrows * Q;
+  long long e0 = 0;
+  if (((uintptr_t)out & 15) == ((uintptr_t)ring.g & 15)) {
+    e0 = ring.head / 4;
+    const long long nv = ring.mid / 16;
+    for (long long v = t; v < nv; v += nt)
+      reinterpret_cast<int4*>(out + e0)[v] =
+          reinterpret_cast<const int4*>(sr + e0)[v];
+    for (long long e = t; e < e0; e += nt) out[e] = sr[e];
+    e0 += nv * 4;
+  }
+  for (long long e = e0 + t; e < len; e += nt) out[e] = sr[e];
+}
+
+int stream_threads(const RaSlotFoldArgs& a, long long lanes) {
+  return (int)((lanes * a.p * kRowThreads + 31) / 32 * 32);
+}
+
+// the stream kernel's shared bytes for blocks of `lanes` lanes
+size_t stream_smem(const RaSlotFoldArgs& a, long long lanes, int gm) {
+  const long long rows = lanes * a.p;
+  return (size_t)(16 + round16(8LL * gm * stream_threads(a, lanes)) +
+                  run_room(4 * rows * a.s) + run_room(12 * lanes * a.a) +
+                  run_room(rows * a.a));
+}
+
+// Lanes a block for the stream kernel, or 0 where it does not take these
+// operands: the engine's layout (the lane's [A,3] window through a member
+// stride of 0, the mask contiguous; strides of unit axes aside), G <= gm,
+// and a lane's rows within a block's threads and shared memory.
+long long stream_lanes(const RaSlotFoldArgs& a, int gm) {
+  const long long A = a.a;
+  const bool layout =
+      a.c == 3 && a.cmd_stride[3] == 1 &&
+      (a.a == 1 || a.cmd_stride[2] == 3) &&
+      (a.p == 1 || a.cmd_stride[1] == 0) &&
+      (a.n == 1 || a.cmd_stride[0] == 3 * A) && a.mask_stride[2] == 1 &&
+      (a.p == 1 || a.mask_stride[1] == A) &&
+      (a.n == 1 || a.mask_stride[0] == a.p * A);
+  if (!layout || a.g > gm) return 0;
+  long long lanes = kStreamRows / a.p > 1 ? kStreamRows / a.p : 1;
+  while (lanes > 1 && stream_smem(a, lanes, gm) > (size_t)kSmemPerBlock)
+    lanes /= 2;
+  return stream_smem(a, lanes, gm) <= (size_t)kSmemPerBlock &&
+         stream_threads(a, lanes) <= kStreamMaxThreads ? lanes : 0;
+}
+
+// The opt-in to more than 48 KB of dynamic shared memory is an attribute
+// of the kernel on each device: kept per device, or a launch on a second
+// card goes above 48 KB without it.
+template <typename Kernel>
+int opt_in(Kernel kernel, size_t smem, size_t (&opted)[kMaxDevices]) {
+  int dev = 0;
+  const cudaError_t ge = cudaGetDevice(&dev);
+  if (ge != cudaSuccess) return (int)ge;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > opted[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    opted[dev] = smem;
+  }
+  return (int)cudaSuccess;
+}
+
+template <int GM>
+int launch_stream(const RaSlotFoldArgs& a, long long lanes,
+                  cudaStream_t stream) {
+  const size_t smem = stream_smem(a, lanes, GM);
+  static size_t opted[kMaxDevices];
+  const int err = opt_in(stream_slot_fold_kernel<GM>, smem, opted);
+  if (err != (int)cudaSuccess) return err;
+  const unsigned blocks = (unsigned)((a.n + lanes - 1) / lanes);
+  stream_slot_fold_kernel<GM><<<blocks, stream_threads(a, lanes), smem,
+                                stream>>>(a, (int)lanes);
+  return (int)cudaGetLastError();
+}
+
 template <int KIND>
 int launch(const RaSlotFoldArgs& a, cudaStream_t stream) {
+  if constexpr (KIND == kStream) {
+    const int gm = a.g <= 4 ? 4 : 16;
+    const long long lanes = stream_lanes(a, gm);
+    if (lanes > 0)
+      return gm == 4 ? launch_stream<4>(a, lanes, stream)
+                     : launch_stream<16>(a, lanes, stream);
+  }
   // rows a block: of 128, 96, 64, 32 (then fewer, for wide files) the one
   // that keeps the most rows on an SM, the larger on a tie; none fits:
   // 128 rows folding in device memory
@@ -382,21 +743,9 @@ int launch(const RaSlotFoldArgs& a, cudaStream_t stream) {
   if (!in_smem) rows_per_block = kMaxRows;
   const size_t smem =
       in_smem ? smem_bytes(KIND, a, rows_per_block) : 0;
-  // the opt-in is an attribute of the kernel on each device: keep it
-  // per device, or a launch on a second card goes above 48 KB
-  // without it
   static size_t opted[kMaxDevices];
-  int dev = 0;
-  const cudaError_t ge = cudaGetDevice(&dev);
-  if (ge != cudaSuccess) return (int)ge;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && smem > opted[dev]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        slot_fold_kernel<KIND, true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    opted[dev] = smem;
-  }
+  const int err = opt_in(slot_fold_kernel<KIND, true>, smem, opted);
+  if (err != (int)cudaSuccess) return err;
   const int vec_cmds =
       a.c >= 4 && a.cmd_stride[3] == 1 && a.cmd_stride[2] % 4 == 0 &&
       a.cmd_stride[1] % 4 == 0 && a.cmd_stride[0] % 4 == 0 &&

@@ -57,25 +57,10 @@ class _Args(ctypes.Structure):
         for name in ("n", "p", "a", "q", "k", "c", "drop_head")]
 
 
-_FN = None
-
-
 def _kernel_fn():
-    global _FN
-    if _FN is None:
-        from . import _build
-        lib = _build.load("fifo_fold")
-        size = lib.ra_fifo_fold_args_size
-        size.argtypes, size.restype = [], ctypes.c_int
-        if size() != ctypes.sizeof(_Args):
-            raise RuntimeError(
-                f"csrc/fifo_fold.cu takes {size()} bytes of arguments, the "
-                f"wrapper passes {ctypes.sizeof(_Args)}")
-        fn = lib.ra_fifo_fold
-        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+    from . import _build
+    return _build.kernel("fifo_fold", "ra_fifo_fold", [
+        ctypes.POINTER(_Args), ctypes.c_void_p], _Args)
 
 
 def fifo_fold_cuda(commands, mask, state, out, *, drop_head: bool) -> None:

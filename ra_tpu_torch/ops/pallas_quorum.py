@@ -22,19 +22,11 @@ MAX_MEMBERS = 16
 #: kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
 
-_FN = None
-
 
 def _kernel_fn():
-    global _FN
-    if _FN is None:
-        from . import _build
-        fn = _build.load("quorum").ra_evaluate_quorum
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+    from . import _build
+    return _build.kernel("quorum", "ra_evaluate_quorum", [
+        ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def evaluate_quorum_cuda(commit_index: torch.Tensor,

@@ -59,25 +59,10 @@ class _Args(ctypes.Structure):
         (name, ctypes.c_int) for name in ("n", "p", "a", "s", "g", "c")]
 
 
-_FN = None
-
-
 def _kernel_fn():
-    global _FN
-    if _FN is None:
-        from . import _build
-        lib = _build.load("slot_fold")
-        size = lib.ra_slot_fold_args_size
-        size.argtypes, size.restype = [], ctypes.c_int
-        if size() != ctypes.sizeof(_Args):
-            raise RuntimeError(
-                f"csrc/slot_fold.cu takes {size()} bytes of arguments, the "
-                f"wrapper passes {ctypes.sizeof(_Args)}")
-        fn = lib.ra_slot_fold
-        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+    from . import _build
+    return _build.kernel("slot_fold", "ra_slot_fold", [
+        ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p], _Args)
 
 
 def _cell_leaves(kind: str, state) -> dict:

@@ -14,13 +14,7 @@ from ra_tpu.ops.pallas_quorum import evaluate_quorum_pallas
 from ra_tpu_torch.ops import pallas_quorum as pq
 from ra_tpu_torch.ops import quorum as port
 from test_torch_classic_card import cuda_device  # noqa: F401
-
-
-def _same(got, want):
-    got = got.numpy()
-    want = np.asarray(want)
-    assert got.dtype == want.dtype, (got.dtype, want.dtype)
-    np.testing.assert_array_equal(got, want)
+from test_torch_counter import _same
 
 
 def _case(seed, n, p, no_voter_lanes=False):
@@ -106,7 +100,9 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,p", [(10_000, 5), (513, 2), (1024, 7),
-                                 (4099, 15), (300, 16), (1, 1)])
+                                 (4099, 15), (300, 16), (1, 1), (63, 5),
+                                 (64, 5), (65, 5), (10_001, 5), (10_000, 3),
+                                 (10_000, 9)])
 def test_kernel_matches_plain_on_card(cuda_device, n, p):
     commit, match, voter, tstart = (
         torch.from_numpy(x).to(cuda_device)

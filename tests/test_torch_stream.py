@@ -34,19 +34,18 @@ from ra_tpu_torch.models.stream import query_bounds
 from ra_tpu_torch.ops import slot_fold
 from chip_smoke import STREAM_EDGE as EDGE
 from chip_smoke import stream_commands as stream_cmds
-from chip_smoke import stream_state
+from chip_smoke import stream_state, wrap32
 from test_torch_machines import assert_tree_equal
 from test_torch_engine import assert_same, host_verbs, \
     positional_archives
 from test_torch_classic_card import cuda_device  # noqa: F401
+from test_torch_dedup import to_port
 
 CPU = torch.device("cpu")
 N, P = 6, 3
 #: (capacity, groups): the default, a small ring, a ring that is no power
 #: of two
 SHAPES = [(64, 4), (8, 3), (5, 2)]
-def to_port(tree):
-    return jax.tree.map(lambda x: torch.from_numpy(np.array(x)), tree)
 
 
 @pytest.mark.parametrize("Q,G", SHAPES)
@@ -107,6 +106,77 @@ def test_window_folds_match_reference(Q, G, A):
             assert_tree_equal(port_m._batch_fast(*pargs),
                               ref_m._batch_fast(*rargs),
                               f"fast fold, {what}")
+
+
+def _composed_fold(Q, G, cmd, keep, st, parts=8):
+    """One row's window folded as the card's stream decoder folds it: in
+    ``parts`` runs, each from its tail and folded alone into clamp maps of
+    the base and cursors, the maps composed in a tree in order; the ring
+    takes its last Q appends, or all in order where two share a slot."""
+    wrap = lambda x: (x + 2 ** 31) % 2 ** 32 - 2 ** 31  # noqa: E731
+    then = lambda f, lo, hi: tuple(min(max(v, lo), hi) for v in f)  # noqa
+    A, tail0, buf = len(cmd), int(st["tail"]), [int(v) for v in st["buf"]]
+    app = [bool(keep[i]) and cmd[i][0] == 1 and cmd[i][1] >= 0
+           for i in range(A)]
+    K, per, k, maps = sum(app), -(-A // parts), 0, []
+    distinct = Q & (Q - 1) == 0 or tail0 + K - 1 < 2 ** 31
+    for j in range(parts):      # maps[j]: the base's, then each cursor's
+        tail, m = wrap(tail0 + k), [(-2 ** 31, 2 ** 31 - 1)] * (G + 1)
+        for i in range(min(A, j * per), min(A, j * per + per)):
+            op, x, y = (int(v) for v in cmd[i])
+            if keep[i] and app[i]:
+                if distinct and k >= K - Q:
+                    buf[tail % Q] = x
+                tail, k = wrap(tail + 1), k + 1
+            if keep[i] and op == 2 and 0 <= x < G:
+                m[x + 1] = then(m[x + 1], max(y, 0), tail)
+            elif keep[i] and op == 3:
+                m[0] = then(m[0], max(x, 0), tail)
+            if keep[i]:
+                m[0] = then(m[0], wrap(tail - Q), 2 ** 31 - 1)
+        maps.append(m)
+    while len(maps) > 1:
+        maps = [[then(f, *g) for f, g in zip(a, b)]
+                for a, b in zip(maps[::2], maps[1::2])]
+    for i in range(A):
+        if app[i] and not distinct:
+            buf[tail0 % Q], tail0 = int(cmd[i][1]), wrap(tail0 + 1)
+    base, *cursors = [then((int(v),) * 2, *f)[0] for v, f in
+                      zip([st["base"], *st["cursors"]], maps[0])]
+    return {"buf": buf, "tail": wrap(int(st["tail"]) + K), "base": base,
+            "cursors": cursors}
+
+
+@pytest.mark.parametrize("Q,G", SHAPES)
+def test_composed_maps_match_reference_fold(Q, G):
+    """The stream decoder's algebra on the CPU: each row's window folded
+    by composed maps (``_composed_fold``) equals the reference's in-order
+    ``jit_apply`` fold, window after window, from tails, bases and cursors
+    at the int32 edges, with all-masked, one-command and A > Q windows
+    (the last from tails that wrap inside it)."""
+    ref_m = RefStream(Q, G)
+    fold = jax.jit(ref_m.sequential_window_fold)
+    rng = np.random.default_rng(Q + G)
+    st = stream_state(rng, (N, P), Q, G)
+    for w, (A, keep) in enumerate([(40, 0.85), (40, 0.0), (1, 1.0),
+                                   (3 * Q + 7, 0.95)]):
+        if w == 3:      # the tail wraps at any point of an append window
+            st["tail"] = wrap32(2 ** 31 - 1 - rng.integers(0, A, (N, P)))
+        cmd = np.broadcast_to(stream_cmds(rng, (N, 1, A), G, w == 3),
+                              (N, P, A, 3))
+        mask = rng.random((N, P, A)) < keep
+        index = np.ones((N, P, A), np.int32)
+        want = {k: np.array(v) for k, v in fold(
+            {"index": jnp.asarray(index), "term": jnp.int32(1)},
+            jnp.asarray(cmd), jnp.asarray(mask),
+            jax.tree.map(jnp.asarray, st)).items()}
+        for n, p in np.ndindex(N, P):
+            got = _composed_fold(Q, G, cmd[n, p], mask[n, p],
+                                 {k: v[n, p] for k, v in st.items()})
+            for k, v in got.items():
+                assert np.array_equal(np.asarray(v, np.int64),
+                                      want[k][n, p]), (w, n, p, k)
+        st = want
 
 
 def test_fold_choice_on_card_follows_capacity():
@@ -511,18 +581,25 @@ def test_read_oracle_stream():
 
 # -- the stream decoder on the card ----------------------------------------
 
-DECODER_CASES = [(Q, G, n, p, a) for Q, G in SHAPES
+#: (Q, G, n, p, a, share applied): lane counts no multiple of a block's,
+#: A = 1 and > Q, all-masked and one-command windows, 9 and 40 groups
+DECODER_CASES = [(Q, G, n, p, a, 0.85) for Q, G in SHAPES
                  for n, p, a in [(6, 3, 9), (129, 1, 1), (300, 7, 20),
-                                 (33, 16, 140)]] + [(30_000, 40, 33, 3, 40)]
+                                 (33, 16, 140)]] + [
+    (30_000, 40, 33, 3, 40, 0.85), (64, 4, 1_003, 5, 130, 0.85),
+    (64, 4, 1_001, 1, 70, 0.85), (5, 2, 1_003, 5, 130, 0.85),
+    (64, 4, 257, 16, 150, 0.85), (64, 4, 999, 5, 130, 0.0),
+    (5, 2, 77, 5, 1, 1.0), (64, 9, 301, 5, 70, 0.85)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,G,n,p,a", DECODER_CASES)
-def test_stream_decoder_matches_plain_on_card(cuda_device, Q, G, n, p, a):
+@pytest.mark.parametrize("Q,G,n,p,a,keep", DECODER_CASES)
+def test_stream_decoder_matches_plain_on_card(cuda_device, Q, G, n, p, a,
+                                              keep):
     """``StreamMachine.in_order_fold`` on the card (one launch of the
     stream decoder) against the plain version on the same inputs: random,
-    append-only and int32-edge windows, chained; every leaf equal.  A
-    ring of 30,000 is too wide for a row in shared memory and folds in
+    append-only and int32-edge windows, chained; every leaf equal.  Forty
+    groups (and a ring of 30,000) take the one-thread kernel, folding in
     device memory."""
     m = StreamMachine(Q, G)
     rng = np.random.default_rng(Q + n + p + a)
@@ -531,7 +608,7 @@ def test_stream_decoder_matches_plain_on_card(cuda_device, Q, G, n, p, a):
     for w in range(3):
         cmd = torch.from_numpy(stream_cmds(rng, (n, a), G, clean=w == 1))
         cmds = cmd.to(cuda_device)[:, None].expand(n, p, a, 3)
-        mask = torch.from_numpy(rng.random((n, p, a)) < 0.85).to(
+        mask = torch.from_numpy(rng.random((n, p, a)) < keep).to(
             cuda_device)
         meta = {"index": torch.ones((n, p, a), dtype=torch.int32,
                                     device=cuda_device),
